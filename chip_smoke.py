@@ -8,32 +8,52 @@ which raises on failure (the script then exits non-zero and prints no
 result):
 
 1. environment: the card's name and power limit, the CUDA and nvcc versions;
-2. build: compiles the hand-written kernel (vectorsearch_torch/csrc) for
-   sm_90a from the checkout;
-3. kernel vs plain: the exact-pool kernel against its plain PyTorch version
-   on the card at every shape a sift1m batch gives it (Q 512, D 128, L2: the
-   8-segment group, N 800,768, fold 8; the 2-segment group, N 200,192,
-   fold 2; the ACTIVE brute table, N 100,096 with its first 20,000 rows
-   valid, fold 1), a cosine case with a zero-norm row, and a tail case (N
-   not a multiple of the tile, invalid rows, dead bins);
-4. end to end: builds the sift1m exact index (1M x 128 clustered rows from
-   seed 42, 10 sealed segments of 100k, L2, skip_for_exact), serves 512-query
-   batches at k = 10 through ``VectorIndex.query_batch_arrays``, checks
-   recall@10 >= 0.99 on 128 held-out queries against float64 ground truth
-   computed on the card, counts the kernel's launches on the main path,
-   drives a batch with a 20,000-row ACTIVE segment (the brute route), and
-   measures serving QPS with 8 client threads;
-5. timings at the sift1m shape: the kernel, its plain version,
-   ``torch.matmul`` of the same product (the library yardstick; the port
-   never calls it there) and the card's bound.
+2. build: compiles the hand-written kernels (vectorsearch_torch/csrc/*.cu,
+   one nvcc per source, all started together) for sm_90a from the checkout
+   and prints each kernel's registers and spills;
+3. kernel vs plain on the card:
+   - the exact-pool kernel (B1) at every shape a sift1m exact batch gives it
+     (Q 512, D 128, L2: the 8-segment group, N 800,768, fold 8; the
+     2-segment group, N 200,192, fold 2; the ACTIVE brute table, N 100,096
+     with its first 20,000 rows valid, fold 1), a cosine case with a
+     zero-norm row, and a tail case (N not a multiple of the tile, invalid
+     rows, dead bins);
+   - the ADC kernels (B3 pool, B4 scores, B5 scan, B5 precise scan) at the
+     sift1m segment shape (Q 512, M 16, K 256, N 100,096), a segment under
+     16,384 rows (N 10,112), a tail case (N 50,123, ~2% valid rows, dead
+     bins) and a wide LUT (M 64, K 256, D 256);
+4. end to end on sift1m (1M x 128 clustered rows from seed 42, 10 sealed
+   segments of 100k, L2, 512-query batches, k = 10, recall@10 on 128
+   held-out queries against float64 ground truth computed on the card):
+   - exact mode (skip_for_exact): recall >= 0.99, B1 launches per batch, the
+     brute route with a 20,000-row ACTIVE segment, serving QPS with 8 client
+     threads and one batch's latency, and a profile (below);
+   - flat mode (PQ M 16 x K 256 trained at seal on the card,
+     skip_for_flat, bench.py's SearchParams): per-segment pools through B3
+     (10 launches per batch), recall >= 0.97, true distances, QPS with 8
+     clients and with 1, latency, and a profile;
+   - unified flat: the same sealed segments reopened with
+     unified_search=True, through B5 (10 launches per batch), recall >= 0.85
+     (one ef_buf of 256 spans 800k rows by design);
+   - small-segment flat: 100,000 rows in 10,000-row segments, through B4
+     (10 launches per batch), recall >= 0.97;
+   each profile traces five one-client batches and one 8-client window
+   with torch.profiler: wall and device time per batch, the card's busy
+   share, device operations and kernel-launch calls per batch (full tables
+   in _profiles/chip_smoke_profile.txt, git-ignored);
+5. timings at the sift1m shapes: each kernel, its plain version, one
+   PyTorch call computing the same function where there is one (the library
+   yardstick; the port never calls it) and the card's bound.
 
-The line before the last names the card and its power limit; the line
-before that is a JSON object with one entry per kernel; the last line is
-``{"ok": true, "device": {...}}``.
+Every kernel's launch count is set to 0 just before each main-path run and
+read just after. The line before the last names the card and its power
+limit; the line before that is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -51,6 +71,15 @@ _PEAKS = {
     "pcie": dict(bytes_s=2.0e12, bf16=756e12, fp32=51e12),
 }
 
+# (name, C source, replaced TPU kernel) of every kernel the port has
+_KERNELS = [
+    ("exact_pool", "exact_pool", "vectorsearch_tpu/ops/pallas/exact.py:107"),
+    ("adc_pool", "adc", "vectorsearch_tpu/ops/pallas/adc.py:274"),
+    ("adc_scores", "adc", "vectorsearch_tpu/ops/pallas/adc.py:79"),
+    ("adc_scan", "adc", "vectorsearch_tpu/ops/pallas/adc.py:68"),
+    ("adc_scan_precise", "adc", "vectorsearch_tpu/ops/pallas/adc.py:51"),
+]
+
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
@@ -66,12 +95,28 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _counted(exact_ops, fn):
-    """Runs fn() with the kernel's launch count set to 0 just before it;
-    returns (fn's result, the launches during that run)."""
-    exact_ops.exact_pool_cuda.launches = 0
+def _wrappers():
+    """Kernel name -> its wrapper (each carries a ``launches`` count)."""
+    from vectorsearch_torch.ops import adc as adc_ops
+    from vectorsearch_torch.ops import exact as exact_ops
+
+    return {
+        "exact_pool": exact_ops.exact_pool_cuda,
+        "adc_pool": adc_ops.adc_pool_cuda,
+        "adc_scores": adc_ops.adc_scores_cuda,
+        "adc_scan": adc_ops.adc_scan_cuda,
+        "adc_scan_precise": adc_ops.adc_scan_precise_cuda,
+    }
+
+
+def _counted(fn):
+    """Runs fn() with every kernel's launch count set to 0 just before it;
+    returns (fn's result, {kernel: launches during that run})."""
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
     out = fn()
-    return out, exact_ops.exact_pool_cuda.launches
+    return out, {name: w.launches for name, w in wrappers.items()}
 
 
 def _time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -91,7 +136,26 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-# --------------------------------------------------------------- phase 3
+# --------------------------------------------------------------- phase 2
+
+
+def _build_all():
+    """Builds every csrc/*.cu library, one nvcc each, all started together;
+    returns {source: (path, compiler output, seconds)}."""
+    from vectorsearch_torch.utils import cuda_build
+
+    sources = sorted({src for _n, src, _r in _KERNELS})
+
+    def one(src):
+        t0 = time.time()
+        path, out = cuda_build.build(src)
+        return src, (path, out, time.time() - t0)
+
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        return dict(pool.map(one, sources))
+
+
+# ------------------------------------------------------- phase 3: exact
 
 
 def _case(name, n, metric, *, seed, zero_row=False, alive_frac=1.0, qn=512,
@@ -121,6 +185,18 @@ def _case(name, n, metric, *, seed, zero_row=False, alive_frac=1.0, qn=512,
     if zero_row:
         x[7] = 0.0
     return dict(name=name, q=q, x=x, valid=valid, metric=metric)
+
+
+def _near_ties(rank, tol):
+    """Positions of a descending [Q, k] rank-score plane whose neighbour
+    sits within `tol` (their ids may swap)."""
+    import torch
+
+    near = torch.zeros_like(rank, dtype=torch.bool)
+    diff = (rank[:, :-1] - rank[:, 1:]).abs() <= tol
+    near[:, :-1] |= diff
+    near[:, 1:] |= diff
+    return near
 
 
 def _check_pool(case, exact_ops, traversal_ops):
@@ -172,11 +248,7 @@ def _check_pool(case, exact_ops, traversal_ops):
         finals.append(traversal_ops.exact_finalize(q, top, ids, k, metric))
         rank = torch.topk(top, k, dim=1).values  # final rank scores
     (_ks, _kd, k_i), (_ps, _pd, p_i) = finals
-    # positions whose neighbours' rank scores sit within 2 tol may swap
-    near = torch.zeros_like(k_i, dtype=torch.bool)
-    diff = (rank[:, :-1] - rank[:, 1:]).abs() <= 2 * tol
-    near[:, :-1] |= diff
-    near[:, 1:] |= diff
+    near = _near_ties(rank, 2 * tol)
     mismatch = int(((k_i != p_i) & ~near).sum())
     if mismatch:
         raise AssertionError(f"{case['name']}: {mismatch} final top-k ids differ")
@@ -189,11 +261,117 @@ def _check_pool(case, exact_ops, traversal_ops):
     return max_err, report
 
 
+# --------------------------------------------------------- phase 3: ADC
+
+
+def _adc_case(name, n, *, seed, qn=512, m=16, k=256, d=128, frac=1.0,
+              pad_from=None):
+    """A real LUT (queries near a random codebook's centroids, through
+    build_lut), random byte codes and a validity mask, made on the card from
+    a seed. `pad_from`: rows from there on are invalid (a segment's pad)."""
+    import torch
+
+    from vectorsearch_torch.ops import pq as pq_ops
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cb = torch.randn(m, k, d // m, device="cuda", generator=g) * 4
+    pick = torch.randint(0, k, (qn, m), device="cuda", generator=g)
+    q = cb[torch.arange(m, device="cuda")[None, :], pick].reshape(qn, d)
+    q = q + torch.randn(qn, d, device="cuda", generator=g)
+    lut = pq_ops.build_lut(q, cb)
+    codes = torch.randint(0, k, (n, m), device="cuda", generator=g,
+                          dtype=torch.int32).to(torch.uint8)
+    if frac < 1.0:
+        valid = torch.rand(n, device="cuda", generator=g) < frac
+    else:
+        valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    if pad_from is not None:
+        valid &= torch.arange(n, device="cuda") < pad_from
+    return dict(name=name, lut=lut, codes=codes, valid=valid)
+
+
+def _check_adc(case, adc_ops):
+    """The four ADC kernels vs their plain versions on one case; returns
+    ({kernel: max_abs_err}, report). Pool: scores equal to 1e-6 relative
+    (the same f32 additions in the same order), ids equal in bins whose best
+    and second-best differ by more, identical stage-2 pool; scores scan:
+    within 1 bf16 ulp; scans: 1e-6 relative."""
+    import torch
+
+    from vectorsearch_torch.ops.exact import pool_topk
+
+    lut, codes, valid = case["lut"], case["codes"], case["valid"]
+    qn, m, k = lut.shape
+    n = codes.shape[0]
+    lh = adc_ops.lut_bf16(lut)
+    hi, lo = adc_ops.lut_hi_lo(lut)
+    tile, bins, fold, w = adc_ops.pool_geometry(qn, m, k, n)
+    geom = dict(tile=tile, bins=bins, fold=fold, w=w)
+    errs, notes = {}, []
+
+    def rel_check(label, got, want, rtol):
+        fin = torch.isfinite(want)
+        if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(
+            got[~fin], want[~fin]
+        ):
+            raise AssertionError(f"{case['name']}: {label} padding differs")
+        diff = (got[fin].float() - want[fin].float()).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        if bool((diff > rtol * want[fin].float().abs()).any()):
+            raise AssertionError(f"{case['name']}: {label} error {err} above tolerance")
+        return err
+
+    # B3
+    ks, ki = adc_ops.adc_pool_cuda(lh, codes, valid, **geom)
+    ps, pi = adc_ops.adc_pool_plain(lh, codes, valid, **geom)
+    torch.cuda.synchronize()
+    live = torch.isfinite(ps)
+    errs["adc_pool"] = rel_check("pool scores", ks, ps, 1e-6)
+    s = torch.where(valid[None, :], -adc_ops._lut_sums(lh, codes), float("-inf"))
+    span, ng = fold * tile, w // bins
+    s = torch.nn.functional.pad(s, (0, ng * span - n), value=float("-inf"))
+    top2 = s.view(qn, ng, span // bins, bins).topk(2, dim=2).values
+    del s
+    best, second = top2[:, :, 0].reshape(qn, -1), top2[:, :, 1].reshape(qn, -1)
+    gap = torch.nan_to_num(best - second, nan=0.0, posinf=float("inf"))
+    sep = live & (gap > 1e-6 * best.abs())
+    if not torch.equal(ki[sep], pi[sep]):
+        raise AssertionError(f"{case['name']}: separated pool bins differ in id")
+    if not bool(valid[ki[live].long()].all()):
+        raise AssertionError(f"{case['name']}: an invalid row won a pool bin")
+    if not bool((ki[~live] == -1).all()):
+        raise AssertionError(f"{case['name']}: a dead pool bin has a row id")
+    (kt, kid), (pt, pid) = pool_topk(ks, ki, 256), pool_topk(ps, pi, 256)
+    scale = pt.abs().nan_to_num(0.0, posinf=0.0).amax(1, keepdim=True)
+    near = _near_ties(pt, 1e-6 * scale)
+    if int(((kid != pid) & ~near).sum()):
+        raise AssertionError(f"{case['name']}: stage-2 pools differ")
+    notes.append(f"pool W={w} fold={fold} sep_bins={int(sep.sum())}/"
+                 f"{int(live.sum())} stage2_equal={int((kid == pid).sum())}/"
+                 f"{kid.numel()}")
+    # B4: within 1 bf16 ulp
+    a = adc_ops.adc_scores_cuda(lh, codes, valid)
+    b = adc_ops.adc_scores_plain(lh, codes, valid)
+    errs["adc_scores"] = rel_check("scores", a, b, 2.0 ** -7)
+    notes.append(f"scores width={a.shape[1]} equal={bool(torch.equal(a, b))}")
+    # B5, both forms
+    a = adc_ops.adc_scan_cuda(lh, codes, valid)
+    errs["adc_scan"] = rel_check("scan", a, adc_ops.adc_scan_plain(lh, codes, valid), 1e-6)
+    a = adc_ops.adc_scan_precise_cuda(hi, lo, codes, valid)
+    b = adc_ops.adc_scan_precise_plain(hi, lo, codes, valid)
+    errs["adc_scan_precise"] = rel_check("precise scan", a, b, 1e-6)
+    torch.cuda.synchronize()
+    report = (f"{case['name']}: Q={qn} N={n} M={m} K={k} valid={int(valid.sum())} "
+              + " ".join(f"{key}_err={v:.3e}" for key, v in errs.items())
+              + "; " + "; ".join(notes))
+    return errs, report
+
+
 # --------------------------------------------------------------- phase 4
 
 
-def _build_sift1m(tvs):
-    """bench.py's sift1m generator and index settings, on the port."""
+def _sift1m_data():
+    """bench.py's sift1m generator: 1M x 128 rows and 512 queries."""
     import numpy as np
 
     rng = np.random.default_rng(42)
@@ -202,14 +380,34 @@ def _build_sift1m(tvs):
     x = centers[rng.integers(0, 2048, n)] + rng.normal(size=(n, d)).astype(
         np.float32
     )
-    t0 = time.time()
-    idx = tvs.VectorIndex.create_or_open(tvs.VectorIndexConfig(
-        storage=tvs.MemoryStorage(), name="sift1m", dimension=d, metric="L2",
-        max_segment_size=100_000, pq_m=16, pq_k=256, graph_degree=32,
-        graph_build_breadth=64, sealed_search_mode="exact",
-        graph_build_mode="skip_for_flat", pq_build_mode="skip_for_exact",
-        device="cuda",
+    q = centers[rng.integers(0, 2048, 512)] + rng.normal(size=(512, d)).astype(
+        np.float32
+    )
+    return x, q, rng
+
+
+def _open_index(tvs, storage, mode, seg_size, **kw):
+    modes = dict(
+        exact=dict(sealed_search_mode="exact", graph_build_mode="skip_for_flat",
+                   pq_build_mode="skip_for_exact"),
+        flat=dict(sealed_search_mode="flat", graph_build_mode="skip_for_flat",
+                  pq_build_mode="always"),
+    )[mode]
+    return tvs.VectorIndex.create_or_open(tvs.VectorIndexConfig(
+        storage=storage, name="sift1m", dimension=128, metric="L2",
+        max_segment_size=seg_size, pq_m=16, pq_k=256, graph_degree=32,
+        graph_build_breadth=64, device="cuda", **modes, **kw,
     ))
+
+
+def _build(tvs, x, storage, mode, seg_size):
+    """Adds x and seals every full segment (PQ trained on the card in flat
+    mode); returns (index, gids, seconds)."""
+    import numpy as np
+    import torch
+
+    t0 = time.time()
+    idx = _open_index(tvs, storage, mode, seg_size)
     gids = idx.add_all(x)
     while idx.build_queue.has_visible_unclaimed_tasks():
         claim = idx.build_queue.await_and_claim(timeout=1)
@@ -217,11 +415,8 @@ def _build_sift1m(tvs):
             break
         idx.build_service.build(claim.payload.seg_id)
         claim.complete()
-    build_s = time.time() - t0
-    q = centers[rng.integers(0, 2048, 512)] + rng.normal(size=(512, d)).astype(
-        np.float32
-    )
-    return idx, x, np.asarray(gids), q, build_s, rng
+    torch.cuda.synchronize()
+    return idx, np.asarray(gids), time.time() - t0
 
 
 def _ground_truth(x, q, k):
@@ -237,7 +432,17 @@ def _ground_truth(x, q, k):
     return out
 
 
-def _measure_qps(idx, queries, k, batch=512, clients=8, seconds=2.0, windows=5):
+def _recall(got, truth, gids):
+    import numpy as np
+
+    return float(np.mean([
+        len(set(gids[truth[i]].tolist()) & set(got[i].tolist())) / truth.shape[1]
+        for i in range(len(truth))
+    ]))
+
+
+def _measure_qps(idx, queries, k, params=None, batch=512, clients=8,
+                 seconds=2.0, windows=5):
     """Serving QPS: `clients` threads call query_batch_arrays in a loop;
     counts are sampled at window boundaries, the first window discarded,
     median (lo, hi) of the rest. Each call's block is perturbed by a fresh
@@ -254,7 +459,7 @@ def _measure_qps(idx, queries, k, batch=512, clients=8, seconds=2.0, windows=5):
             while not stop.is_set():
                 off = (i * batch + done) % (len(queries) - batch)
                 uniq = np.float32(i * 1_000_003 + done) * np.float32(1e-7)
-                idx.query_batch_arrays(queries[off : off + batch] + uniq, k)
+                idx.query_batch_arrays(queries[off : off + batch] + uniq, k, params)
                 done += batch
                 counts[i] += batch
         except Exception as e:  # reported by the caller
@@ -281,6 +486,218 @@ def _measure_qps(idx, queries, k, batch=512, clients=8, seconds=2.0, windows=5):
         raise RuntimeError("a client thread did not stop")
     meas = samples[1:]
     return statistics.median(meas), min(meas), max(meas)
+
+
+def _latency(idx, q, k, params=None, runs=10):
+    """One client: a 512-query batch's latency end to end, (median, lo, hi) ms."""
+    import numpy as np
+    import torch
+
+    lat = []
+    for b in range(runs):
+        t0 = time.perf_counter()
+        idx.query_batch_arrays(q + np.float32(b * 1e-6), k, params)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(lat), min(lat), max(lat)
+
+
+class _Launches:
+    """Launch counts of the main path, summed over its counted runs."""
+
+    def __init__(self):
+        self.total = {name: 0 for name, _s, _r in _KERNELS}
+        self.per_batch = {}
+
+    def run(self, fn):
+        out, counts = _counted(fn)
+        for name, n in counts.items():
+            self.total[name] += n
+        return out, counts
+
+
+def _serve_checks(label, idx, x, q, gids, truth, tag, launches, *, kernel,
+                  want_per_batch, min_recall, params=None, qps=True):
+    """Recall, true distances and per-batch launches of one path; then its
+    serving QPS and one batch's latency. Returns ({kernel: launches in one
+    512-batch}, recall); every kernel's count is read from the same three
+    counted batches, and must be the same in each."""
+    import numpy as np
+
+    # warm: uploads, stacks, codebooks (a main-path run, counted too)
+    launches.run(lambda: idx.query_batch_arrays(q, 10, params))
+    (got, _s, dists), _c = launches.run(
+        lambda: idx.query_batch_arrays(q[:128], 10, params)
+    )
+    if got.shape != (128, 10) or not np.isfinite(dists).all():
+        raise AssertionError(f"{label}: malformed results")
+    recall = _recall(got, truth, gids)
+    row_of = {int(g): i for i, g in enumerate(gids[:len(x)])}
+    rows = np.asarray([row_of[int(g)] for g in got[0]])
+    want = np.linalg.norm(x[rows] - q[0], axis=1)
+    if not np.allclose(dists[0], want, rtol=1e-3, atol=1e-3):
+        raise AssertionError(f"{label}: distances are not true distances")
+    per_batch = []
+    for b in range(3):
+        _o, c = launches.run(
+            lambda: idx.query_batch_arrays(q + np.float32(b * 1e-6), 10, params)
+        )
+        per_batch.append(c)
+    if any(c != per_batch[0] for c in per_batch):
+        raise AssertionError(f"{label}: launches differ between batches {per_batch}")
+    if per_batch[0][kernel] != want_per_batch:
+        raise AssertionError(
+            f"{label}: {kernel} launches per batch {per_batch[0][kernel]}, "
+            f"expected {want_per_batch}"
+        )
+    _log(f"{label} {tag}: recall@10 {recall:.4f} on 128 queries (float64 "
+         f"ground truth on the card); launches per 512-batch {per_batch[0]}")
+    if recall < min_recall:
+        raise AssertionError(f"{label}: recall@10 {recall} < {min_recall}")
+    if qps:
+        (rate, lo, hi), _c = launches.run(
+            lambda: _measure_qps(idx, np.concatenate([q] * 8), 10, params)
+        )
+        _log(f"{label} serving {tag}: {rate:.1f} QPS median of 4 windows "
+             f"[{lo:.1f}, {hi:.1f}], 8 clients, 512-query batches, k=10")
+    (med, lo, hi), _c = launches.run(lambda: _latency(idx, q, 10, params))
+    _log(f"{label} latency {tag}: one 512-query batch, one client, median of "
+         f"10: {med:.3f} ms [{lo:.3f}, {hi:.3f}]")
+    return per_batch[0], recall
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def _on_device(evt) -> bool:
+    return "CUDA" in str(getattr(evt, "device_type", ""))
+
+
+def _traced(fn):
+    """Runs fn() under torch.profiler -> (fn's result, wall s, key_averages)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, prof.key_averages()
+
+
+def _profile(label, idx, q, params, tag, launches, tables):
+    """Where one path's time goes: five one-client batches and one 8-client
+    window under torch.profiler. Prints per batch the wall time, the device
+    time of all device operations, the card's busy share (device time over
+    wall time), the device operations and the host's kernel-launch calls and
+    their mean time, and the top device operations; appends the full tables
+    to `tables`. These runs are main-path runs and are counted like the
+    others."""
+    import numpy as np
+
+    def batches():
+        for b in range(5):
+            idx.query_batch_arrays(q + np.float32(b * 1e-6), 10, params)
+
+    def launch_calls(ka):
+        calls = [e for e in ka if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                            "cudaLaunchKernelExC")]
+        n = sum(e.count for e in calls)
+        us = sum(e.self_cpu_time_total for e in calls)
+        return n, (us / n if n else 0.0)
+
+    ((_o, wall, ka), _c) = launches.run(lambda: _traced(batches))
+    dev = [e for e in ka if _on_device(e)]
+    dev_s = sum(_device_us(e) for e in dev) / 1e6
+    n_calls, call_us = launch_calls(ka)
+    top = sorted(dev, key=_device_us, reverse=True)[:6]
+    _log(f"{label} profile {tag}: one client, 5 batches: wall "
+         f"{wall / 5 * 1e3:.3f} ms per batch, device {dev_s / 5 * 1e3:.3f} ms "
+         f"per batch, card busy {dev_s / wall:.3f}, "
+         f"{sum(e.count for e in dev) / 5:.0f} device operations and "
+         f"{n_calls / 5:.0f} kernel-launch calls ({call_us:.1f} us each) per "
+         f"batch; top: " + "; ".join(
+             f"{e.key[:40]} {_device_us(e) / 5e3:.3f} ms x{e.count / 5:.0f}"
+             for e in top))
+    tables += [f"== {label}, one client, 5 batches {tag}",
+               ka.table(sort_by="self_cpu_time_total", row_limit=25)]
+    ((rate, _lo, _hi), wall, ka), _c = launches.run(lambda: _traced(
+        lambda: _measure_qps(idx, np.concatenate([q] * 8), 10, params,
+                             clients=8, seconds=1.0, windows=3)))
+    dev_s = sum(_device_us(e) for e in ka if _on_device(e)) / 1e6
+    n_calls, call_us = launch_calls(ka)
+    _log(f"{label} profile {tag}: 8 clients, {rate:.1f} QPS while traced, card "
+         f"busy {dev_s / wall:.3f}, kernel-launch calls {call_us:.1f} us each")
+    tables += [f"== {label}, 8 clients {tag}",
+               ka.table(sort_by="self_cpu_time_total", row_limit=25)]
+
+
+# --------------------------------------------------------------- phase 5
+
+
+def _bound(bytes_moved, ops, peaks):
+    """(bound ms, bound_by): the larger of bytes over the memory rate and
+    FP32 operations over the CUDA-core rate."""
+    bytes_ms = bytes_moved / peaks["bytes_s"] * 1e3
+    ops_ms = ops / peaks["fp32"] * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _adc_timings(case, adc_ops, peaks):
+    """Kernel, plain, library and bound times of the four ADC kernels on one
+    case. The library yardstick is the XLA formulation's product
+    (vectorsearch_tpu/ops/pq.py:182-190): the bf16 LUT [Q, M*K] times a
+    prebuilt bf16 one-hot [M*K, N] in one torch.matmul (two for the hi/lo
+    planes); the port never calls it."""
+    import torch
+
+    lut, codes, valid = case["lut"], case["codes"], case["valid"]
+    qn, m, k = lut.shape
+    n = codes.shape[0]
+    lh = adc_ops.lut_bf16(lut)
+    hi, lo = adc_ops.lut_hi_lo(lut)
+    tile, bins, fold, w = adc_ops.pool_geometry(qn, m, k, n)
+    geom = dict(tile=tile, bins=bins, fold=fold, w=w)
+    onehot = torch.zeros(m * k, n, dtype=torch.bfloat16, device="cuda")
+    cols = torch.arange(n, device="cuda")
+    for j in range(m):
+        onehot[j * k + codes[:, j].long(), cols] = 1.0
+    lf, hf, lof = (t.reshape(qn, m * k) for t in (lh, hi, lo))
+    n_valid = int(valid.sum())
+    lut_b = qn * m * k * 2
+    adds = qn * n_valid * m  # the kernels skip invalid rows
+    out = {}
+    for name, kern, plain, lib, nbytes, ops in (
+        ("adc_pool", lambda: adc_ops.adc_pool_cuda(lh, codes, valid, **geom),
+         lambda: adc_ops.adc_pool_plain(lh, codes, valid, **geom),
+         lambda: lf @ onehot, n * m + n + lut_b + qn * w * 8, adds),
+        ("adc_scores", lambda: adc_ops.adc_scores_cuda(lh, codes, valid),
+         lambda: adc_ops.adc_scores_plain(lh, codes, valid),
+         lambda: lf @ onehot,
+         n * m + n + lut_b + qn * adc_ops.scores_width(n) * 2, adds),
+        ("adc_scan", lambda: adc_ops.adc_scan_cuda(lh, codes, valid),
+         lambda: adc_ops.adc_scan_plain(lh, codes, valid),
+         lambda: lf @ onehot, n * m + n + lut_b + qn * n * 4, adds),
+        ("adc_scan_precise",
+         lambda: adc_ops.adc_scan_precise_cuda(hi, lo, codes, valid),
+         lambda: adc_ops.adc_scan_precise_plain(hi, lo, codes, valid),
+         lambda: hf @ onehot + lof @ onehot,
+         n * m + n + 2 * lut_b + qn * n * 4, 2 * adds + qn * n_valid),
+    ):
+        bound_ms, bound_by = _bound(nbytes, ops, peaks)
+        out[name] = dict(
+            ms=_time_ms(kern, 20), plain_ms=_time_ms(plain, 3, 1),
+            library_ms=_time_ms(lib, 10), bound_ms=bound_ms, bound_by=bound_by,
+        )
+    del onehot
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------------ main
@@ -310,9 +727,12 @@ def main() -> int:
     import numpy as np
 
     import vectorsearch_torch as tvs
+    from vectorsearch_torch.ops import adc as adc_ops
     from vectorsearch_torch.ops import exact as exact_ops
     from vectorsearch_torch.ops import traversal as traversal_ops
+    from vectorsearch_torch.utils import cuda_build
 
+    t_start = time.time()
     # 1. environment
     card = _card_line()
     name = torch.cuda.get_device_name(0)
@@ -320,23 +740,25 @@ def main() -> int:
     _log(f"card: {card}")
     _log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
          f"python {sys.version.split()[0]}")
-    nvcc = subprocess.run([exact_ops._nvcc(), "--version"], capture_output=True,
+    nvcc = subprocess.run([cuda_build.nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60)
     _log("nvcc: " + nvcc.stdout.strip().splitlines()[-1])
     tag = f"[{card}]"
 
-    # 2. build
+    # 2. build: every library, one nvcc each, all started together
     t0 = time.time()
-    path, compiler_out = exact_ops.build_kernel()
+    built = _build_all()
+    for src, (path, compiler_out, secs) in sorted(built.items()):
+        _log(f"build {tag}: {os.path.relpath(path, REPO)} in {secs:.1f} s")
+        for line in compiler_out.splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                _log("  ptxas: " + line.strip())
     exact_ops._load_kernel()
-    _log(f"build {tag}: {os.path.relpath(path, REPO)} in {time.time() - t0:.1f} s")
-    for line in compiler_out.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            _log("  ptxas: " + line.strip())
+    adc_ops._load_kernel()
+    _log(f"build {tag}: both libraries in {time.time() - t0:.1f} s")
 
-    # 3. kernel vs plain version on the card, at every shape a sift1m batch
-    # gives the kernel (launches here are comparisons; the counter is set to
-    # 0 before each run of phase 4)
+    # 3. kernel vs plain version on the card (launches here are comparisons;
+    # the counts are set to 0 before each run of phase 4)
     cases = [
         _case("sift1m 8-segment group (L2)", 8 * 100_096, "L2", seed=1, segs=8),
         _case("sift1m 2-segment group (L2)", 2 * 100_096, "L2", seed=4, segs=2),
@@ -347,103 +769,144 @@ def main() -> int:
         _case("tail tile, dead bins (L2)", 50_123, "L2", seed=3,
               alive_frac=0.02),
     ]
-    max_err = 0.0
+    max_err = {name_: 0.0 for name_, _s, _r in _KERNELS}
     for case in cases:
         err, report = _check_pool(case, exact_ops, traversal_ops)
-        max_err = max(max_err, err)
+        max_err["exact_pool"] = max(max_err["exact_pool"], err)
         _log(f"kernel vs plain {tag}: {report}")
     sift_case, two_case = cases[0], cases[1]
     del cases
+    adc_cases = [
+        _adc_case("ADC sift1m segment", 100_096, seed=11, pad_from=100_000),
+        _adc_case("ADC segment under 16,384 rows", 10_112, seed=12,
+                  pad_from=10_000),
+        _adc_case("ADC tail, ~2% valid, dead bins", 50_123, seed=13, frac=0.02),
+        _adc_case("ADC wide LUT (M 64, K 256, D 256)", 100_096, seed=14, m=64,
+                  d=256, pad_from=100_000),
+    ]
+    for case in adc_cases:
+        errs, report = _check_adc(case, adc_ops)
+        for key, v in errs.items():
+            max_err[key] = max(max_err[key], v)
+        _log(f"kernel vs plain {tag}: {report}")
+    adc_sift, adc_small = adc_cases[0], adc_cases[1]
+    del adc_cases
     torch.cuda.empty_cache()
+    _log(f"phases 1-3 {tag}: {time.time() - t_start:.1f} s")
 
-    # 4. end to end
-    idx, x, gids, q, build_s, rng = _build_sift1m(tvs)
+    # 4. end to end on sift1m
+    x, q, rng = _sift1m_data()
+    truth = _ground_truth(x, q[:128], 10)
+    launches = _Launches()
+    tables: list[str] = []  # the profiles' full tables
+    flat_params = tvs.SearchParams(
+        ef_search=150, beam_width=128, max_iters=6, max_explore=150,
+        mode=tvs.Mode.BEST_FIRST,
+    )
+
+    # 4a. exact mode
+    idx, gids, build_s = _build(tvs, x, tvs.MemoryStorage(), "exact", 100_000)
     try:
-        _log(f"sift1m index {tag}: 1,000,000 x 128, "
+        _log(f"sift1m exact index {tag}: 1,000,000 x 128, "
              f"{len(idx.store.snapshot_segments())} segments, "
              f"build+seal {build_s:.1f} s")
-        # warm: first touch uploads the segments and builds the stacks
-        idx.query_batch_arrays(q, 10)
-        torch.cuda.synchronize()
-
-        # the main path's runs: each is counted from 0 (_counted) and the
-        # counts are summed into main_launches
-        (got, scores, dists), main_launches = _counted(
-            exact_ops, lambda: idx.query_batch_arrays(q[:128], 10)
+        exact_counts, exact_recall = _serve_checks(
+            "sift1m exact", idx, x, q, gids, truth, tag, launches,
+            kernel="exact_pool", want_per_batch=2, min_recall=0.99,
         )
-        truth = _ground_truth(x, q[:128], 10)
-        if got.shape != (128, 10) or not np.isfinite(dists).all():
-            raise AssertionError("sift1m: malformed results")
-        recall = np.mean([
-            len(set(gids[truth[i]].tolist()) & set(got[i].tolist())) / 10
-            for i in range(128)
-        ])
-        want = np.linalg.norm(x[got[0]] - q[0], axis=1)
-        if not np.allclose(dists[0], want, rtol=1e-3, atol=1e-3):
-            raise AssertionError("sift1m: distances are not true distances")
-        per_batch = []
-        for b in range(4):
-            _out, n = _counted(
-                exact_ops,
-                lambda: idx.query_batch_arrays(q + np.float32(b * 1e-6), 10),
-            )
-            per_batch.append(n)
-        main_launches += sum(per_batch)
-        if min(per_batch) < 1:
-            raise AssertionError(f"sift1m: kernel not launched {per_batch}")
-        _log(f"sift1m {tag}: recall@10 {recall:.4f} on 128 queries "
-             f"(float64 ground truth on the card); kernel launches per "
-             f"512-batch {per_batch}")
-        if recall < 0.99:
-            raise AssertionError(f"sift1m recall@10 {recall} < 0.99")
-
-        queries = np.concatenate([q] * 8)
-        (qps, lo, hi), n = _counted(
-            exact_ops, lambda: _measure_qps(idx, queries, 10)
-        )
-        main_launches += n
-        _log(f"sift1m serving {tag}: {qps:.1f} QPS median of 4 windows "
-             f"[{lo:.1f}, {hi:.1f}], 8 clients, 512-query batches, k=10")
-
-        def latencies():
-            lat = []
-            for b in range(10):  # one client: a batch's latency, end to end
-                t0 = time.perf_counter()
-                idx.query_batch_arrays(q + np.float32(b * 1e-6), 10)
-                torch.cuda.synchronize()
-                lat.append((time.perf_counter() - t0) * 1e3)
-            return lat
-
-        lat, n = _counted(exact_ops, latencies)
-        main_launches += n
-        _log(f"sift1m latency {tag}: one 512-query batch, one client, "
-             f"median of 10: {statistics.median(lat):.3f} ms "
-             f"[{min(lat):.3f}, {max(lat):.3f}]")
-
+        exact_per_batch = exact_counts["exact_pool"]
+        _profile("sift1m exact", idx, q, None, tag, launches, tables)
         # the brute route: an ACTIVE segment of 20,000 rows (>= 16,384)
         extra = x[:20_000] + rng.normal(size=(20_000, 128)).astype(np.float32)
         new_gids = idx.add_all(extra)
-        (got2, _s2, d2), brute_launches = _counted(
-            exact_ops, lambda: idx.query_batch_arrays(extra[:512], 10)
+        (got2, _s2, _d2), c = launches.run(
+            lambda: idx.query_batch_arrays(extra[:512], 10)
         )
-        main_launches += brute_launches
-        if brute_launches != per_batch[0] + 1:
+        brute_launches = c["exact_pool"]
+        if brute_launches != exact_per_batch + 1:
             raise AssertionError(
                 f"brute route: {brute_launches} launches, expected "
-                f"{per_batch[0] + 1}"
+                f"{exact_per_batch + 1}"
             )
         if not (got2[:, 0] == np.asarray(new_gids[:512])).all():
             raise AssertionError("brute route: appended rows not found")
         _log(f"brute route {tag}: ACTIVE segment of 20,000 rows, kernel "
              f"launches in that batch {brute_launches} (the sealed subgroups' "
-             f"{per_batch[0]} and the brute table's 1), each query's own new "
-             f"row ranks first")
+             f"{exact_per_batch} and the brute table's 1), each query's own "
+             f"new row ranks first")
     finally:
         idx.close()
-    del idx, x
+    del idx
     torch.cuda.empty_cache()
 
-    # 5. timings at the sift1m shape (Q 512, D 128, N 800,768, fold 8)
+    # 4b. flat mode, per-segment pools (B3)
+    storage = tvs.MemoryStorage()
+    idx, gids, build_s = _build(tvs, x, storage, "flat", 100_000)
+    try:
+        segs = idx.store.snapshot_segments()
+        sealed = [s for s in segs if s.state.value == "SEALED"]
+        if len(sealed) != 10 or sealed[0].codes_np.shape[1] != 16:
+            raise AssertionError("sift1m flat: expected 10 PQ-sealed segments")
+        _log(f"sift1m flat index {tag}: 1,000,000 x 128, {len(segs)} "
+             f"segments, build+seal {build_s:.1f} s (10 PQ trainings of "
+             f"M 16 x K 256, 5 iterations, and encodings on the card)")
+        flat_counts, flat_recall = _serve_checks(
+            "sift1m flat", idx, x, q, gids, truth, tag, launches,
+            kernel="adc_pool", want_per_batch=10, min_recall=0.97,
+            params=flat_params,
+        )
+        (rate, lo, hi), _c = launches.run(lambda: _measure_qps(
+            idx, np.concatenate([q] * 8), 10, flat_params, clients=1))
+        _log(f"sift1m flat serving {tag}: {rate:.1f} QPS median of 4 windows "
+             f"[{lo:.1f}, {hi:.1f}], 1 client, 512-query batches, k=10")
+        _profile("sift1m flat", idx, q, flat_params, tag, launches, tables)
+    finally:
+        idx.close()
+    del idx
+    torch.cuda.empty_cache()
+
+    # 4c. unified flat: the same sealed segments reopened (nothing trained
+    # again), one ADC top-ef per power-of-two subgroup (8 + 2) through B5
+    t0 = time.time()
+    idx = _open_index(tvs, storage, "flat", 100_000, unified_search=True)
+    try:
+        _log(f"sift1m unified flat {tag}: reopened in {time.time() - t0:.1f} s")
+        unified_counts, unified_recall = _serve_checks(
+            "sift1m unified flat", idx, x, q, gids, truth, tag, launches,
+            kernel="adc_scan", want_per_batch=10, min_recall=0.85,
+            params=flat_params, qps=False,
+        )
+    finally:
+        idx.close()
+    del idx, storage
+    torch.cuda.empty_cache()
+
+    # 4d. small-segment flat: 100,000 rows in 10,000-row segments (B4)
+    xs = np.ascontiguousarray(x[:100_000])
+    small_truth = _ground_truth(xs, q[:128], 10)
+    idx, sgids, build_s = _build(tvs, xs, tvs.MemoryStorage(), "flat", 10_000)
+    try:
+        _log(f"small-segment flat index {tag}: 100,000 x 128 in 10,000-row "
+             f"segments, build+seal {build_s:.1f} s")
+        small_counts, small_recall = _serve_checks(
+            "small-segment flat", idx, xs, q, sgids, small_truth, tag, launches,
+            kernel="adc_scores", want_per_batch=10, min_recall=0.97,
+            params=flat_params, qps=False,
+        )
+    finally:
+        idx.close()
+    del idx, x, xs
+    torch.cuda.empty_cache()
+    for kname in ("exact_pool", "adc_pool", "adc_scores", "adc_scan"):
+        if launches.total[kname] < 1:
+            raise AssertionError(f"{kname} was not launched on the main path")
+    _log(f"main path launches {tag}: {launches.total}")
+    out_dir = os.path.join(REPO, "_profiles")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "w") as f:
+        f.write("\n".join(tables) + "\n")
+
+    # 5. timings at the sift1m shapes
     qc, xc, vc = sift_case["q"], sift_case["x"], sift_case["valid"]
     q_in, aux, geom = exact_ops.pool_inputs(qc, xc, vc, "L2")
     kernel_ms = _time_ms(lambda: exact_ops.exact_pool_cuda(q_in, xc, aux, **geom), 10)
@@ -463,29 +926,57 @@ def main() -> int:
     # split-bf16 tensor-core passes (plain TF32 is not precise enough)
     ops_ms = 3 * flops / peaks["bf16"] * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    _log(f"timing {tag}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-         f"torch.matmul of the same product {library_ms:.3f} ms, bound "
-         f"{bound_ms:.3f} ms (operations: 3 split-bf16 passes of "
-         f"{flops / 1e9:.1f} GFLOP; bytes {bytes_ms:.3f} ms; FP32 CUDA cores "
+    _log(f"timing exact_pool {tag}: kernel {kernel_ms:.3f} ms, plain "
+         f"{plain_ms:.3f} ms, torch.matmul of the same product "
+         f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms (operations: 3 "
+         f"split-bf16 passes of {flops / 1e9:.1f} GFLOP; bytes "
+         f"{bytes_ms:.3f} ms; FP32 CUDA cores "
          f"{flops / peaks['fp32'] * 1e3:.3f} ms); kernel "
          f"{flops / kernel_ms / 1e9:.1f} TFLOP/s FP32; kernel at the 2-segment "
          f"group (N 200,192, fold {geom2['fold']}) {two_ms:.3f} ms")
+    del sift_case, two_case
+    torch.cuda.empty_cache()
+    timings = {"exact_pool": dict(
+        ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        library_ms=library_ms,
+    )}
+    timings.update(_adc_timings(adc_sift, adc_ops, peaks))
+    small_scores_ms = _time_ms(lambda: adc_ops.adc_scores_cuda(
+        adc_ops.lut_bf16(adc_small["lut"]), adc_small["codes"],
+        adc_small["valid"]), 20)
+    for kname in ("adc_pool", "adc_scores", "adc_scan", "adc_scan_precise"):
+        t = timings[kname]
+        _log(f"timing {kname} {tag}: Q 512 x N 100,096 x M 16 x K 256: kernel "
+             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, one-hot "
+             f"torch.matmul {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+             f"ms ({t['bound_by']})")
+    _log(f"timing adc_scores {tag}: at the small segment (N 10,112) "
+         f"{small_scores_ms:.4f} ms")
 
-    print(json.dumps({"kernels": [{
-        "name": "exact_pool",
-        "route": "cuda",
-        "source": "vectorsearch_torch/csrc/exact_pool.cu",
-        "replaces": "vectorsearch_tpu/ops/pallas/exact.py:107",
-        "launches": main_launches,
-        "launches_per_batch": per_batch[0],
-        "brute_launches": brute_launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": library_ms,
-    }]}), flush=True)
+    # per kernel: the most launches one 512-batch of any path made
+    per_batch = {
+        kname: max(c[kname] for c in (exact_counts, flat_counts,
+                                      unified_counts, small_counts))
+        for kname, _s, _r in _KERNELS
+    }
+    entries = []
+    for kname, src, replaces in _KERNELS:
+        entries.append({
+            "name": kname,
+            "route": "cuda",
+            "source": f"vectorsearch_torch/csrc/{src}.cu",
+            "replaces": replaces,
+            "launches": launches.total[kname],
+            "launches_per_batch": per_batch[kname],
+            "max_abs_err": max_err[kname],
+            **timings[kname],
+        })
+    entries[0]["brute_launches"] = brute_launches
+    _log(f"recall@10 {tag}: exact {exact_recall:.4f}, flat {flat_recall:.4f}, "
+         f"unified flat {unified_recall:.4f}, small-segment flat "
+         f"{small_recall:.4f}; whole run {time.time() - t_start:.1f} s")
+    print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1,0 +1,213 @@
+"""The port's ADC kernels (vectorsearch_torch/ops/adc.py) held against the
+JAX package's Pallas kernels (ops/pallas/adc.py, in interpret mode on the
+CPU, as tests/test_adc_pool.py runs them) on the same numpy inputs. On a CPU
+tensor the port runs each kernel's plain PyTorch version, so these tests pin
+the function its CUDA kernel must compute; chip_smoke.py holds the kernels
+against those plain versions on the card.
+
+Tolerances: both sides sum the same bf16 LUT entries in f32, the TPU kernels
+through a one-hot matrix product and the port in m order, so f32 outputs
+agree to 1e-5 relative; bf16 score outputs to 1 bf16 ulp (2^-7 relative:
+the f32 sums may round to neighbouring bf16 values); pool ids agree in every
+bin whose best and second-best scores differ by more than 1e-4 relative.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vectorsearch_tpu.ops import pq as jpq
+from vectorsearch_tpu.ops.pallas import adc as pa
+from vectorsearch_torch.ops import adc as ta
+from vectorsearch_torch.ops import pq as tpq
+
+
+def _setup(rng, n, d=64, m=8, k=128, qn=12):
+    cb = rng.normal(size=(m, k, d // m)).astype(np.float32)
+    codes = rng.integers(0, k, size=(n, m)).astype(np.uint8)
+    q = rng.normal(size=(qn, d)).astype(np.float32)
+    lut = np.array(jpq.build_lut(jnp.asarray(q), jnp.asarray(cb)))
+    return lut, codes
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _bf16_sums(lut, codes):
+    """f64 sums of the bf16-rounded LUT entries (the kernels' function)."""
+    lb = torch.from_numpy(np.array(lut)).to(torch.bfloat16).double().numpy()
+    m = lut.shape[1]
+    return sum(lb[:, j, :][:, codes[:, j]] for j in range(m))  # [Q, N]
+
+
+@pytest.mark.parametrize("fold", [1, 2])
+def test_pool_matches_pallas(rng, fold):
+    n = 512 * 3 + 77  # a tail tile
+    lut, codes = _setup(rng, n)
+    valid = np.ones(n, bool)
+    valid[40:60] = False
+    js, ji = pa.adc_bin_pool(jnp.asarray(lut), jnp.asarray(codes),
+                             jnp.asarray(valid), tile_n=512, interpret=True,
+                             fold=fold)
+    js, ji = np.asarray(js), np.asarray(ji)
+    ts, ti = ta.adc_bin_pool(*_t(lut, codes, valid), tile_n=512, fold=fold)
+    ts, ti = ts.numpy(), ti.numpy()
+    assert ts.shape == js.shape and ti.dtype == np.int32
+    live = np.isfinite(js)
+    np.testing.assert_array_equal(np.isfinite(ts), live)
+    np.testing.assert_allclose(ts[live], js[live], rtol=1e-5)
+    # ids agree wherever the bin's winner is margin-separated
+    s = np.where(valid[None, :], -_bf16_sums(lut, codes), -np.inf)
+    tile, bins, f, w = ta.pool_geometry(12, 8, 128, n, 512, fold)
+    span = f * tile
+    pad = np.full((12, w // bins * span - n), -np.inf)
+    t = -np.sort(-np.concatenate([s, pad], 1).reshape(12, w // bins, span // bins, bins), axis=2)
+    best, second = t[:, :, 0].reshape(12, -1), t[:, :, 1].reshape(12, -1)
+    with np.errstate(invalid="ignore"):
+        sep = live & ((best - second) > 1e-4 * np.abs(best))
+    assert sep.sum() > 0.9 * live.sum()
+    np.testing.assert_array_equal(ti[sep], ji[sep])
+    assert not np.isin(ti[live], np.arange(40, 60)).any()
+
+
+def test_pool_geometry_is_the_jax_packages():
+    assert pa._auto_pool_tile(512, 4096, None)[0] == ta.pool_geometry(512, 16, 256, 100_096)[0] == 2048
+    assert ta.pool_geometry(512, 16, 256, 100_096) == (2048, 256, 1, 12544)
+    assert pa._auto_pool_tile(512, 5120, None)[0] == ta.pool_geometry(512, 20, 256, 50_000)[0]
+    # the JAX package finds no tile for a LUT this wide and falls back to 1024
+    assert pa._auto_pool_tile(512, 64 * 256, None) is None
+    assert ta.pool_geometry(512, 64, 256, 100_096)[0] == 1024
+    with pytest.raises(ValueError):
+        ta.pool_geometry(8, 8, 16, 5000, tile_n=2176)
+
+
+def test_pool_contains_true_adc_topk(rng):
+    """Collision-free data: each query's 10 nearest rows (by the bf16 ADC
+    the kernel ranks with) are consecutive rows, so they share no bin, and
+    the stage-2 pool holds all of them."""
+    n, qn, k = 20_000, 6, 10
+    lut, codes = _setup(rng, n, qn=qn)
+    best = np.argmin(lut, axis=2).astype(np.uint8)  # [Q, M] nearest codes
+    for i in range(qn):
+        rows = 1000 + 2000 * i + np.arange(k)
+        codes[rows] = best[i]
+        codes[rows, i % 8] = rng.integers(0, 128, k)  # distinct, still near
+    valid = np.ones(n, bool)
+    truth = np.argsort(_bf16_sums(lut, codes), axis=1, kind="stable")[:, :k]
+    neg, idx = ta.adc_pool_scored(*_t(lut, codes, valid), ef_buf=64)
+    idx = idx.numpy()
+    for i in range(qn):
+        assert set(truth[i]) <= set(idx[i].tolist())
+    s = _bf16_sums(lut, codes)
+    ok = idx >= 0
+    np.testing.assert_allclose(-neg.numpy()[ok], np.take_along_axis(s, np.maximum(idx, 0), 1)[ok],
+                               rtol=1e-5)
+
+
+def test_pool_dead_bins_pad_minus_one(rng):
+    n = 1024
+    lut, codes = _setup(rng, n)
+    valid = np.zeros(n, bool)
+    valid[:3] = True
+    neg, idx = ta.adc_pool_scored(*_t(lut, codes, valid), ef_buf=16, tile_n=512)
+    neg, idx = neg.numpy(), idx.numpy()
+    assert set(idx.ravel().tolist()) - {-1} <= {0, 1, 2}
+    assert (idx[:, 3:] == -1).all() and (neg[:, 3:] == -np.inf).all()
+    assert np.isfinite(neg[:, :3]).all()
+
+
+def test_scores_scan_matches_pallas(rng):
+    n = 512 + 130  # not a multiple of the 128-column tile
+    lut, codes = _setup(rng, n, qn=8)
+    valid = np.ones(n, bool)
+    valid[5:9] = False
+    want = np.asarray(pa.adc_scan_scores_pallas(
+        jnp.asarray(lut), jnp.asarray(codes), jnp.asarray(valid), tile_n=128,
+        interpret=True)).astype(np.float32)
+    got = ta.adc_scan_scores(*_t(lut, codes, valid))
+    assert got.dtype == torch.bfloat16 and got.shape[1] == ta.scores_width(n) >= n
+    got = got.float().numpy()
+    assert np.isneginf(got[:, :n][:, ~valid]).all()
+    assert np.isneginf(got[:, n:]).all()  # pad columns
+    np.testing.assert_allclose(got[:, :n][:, valid], want[:, :n][:, valid],
+                               rtol=2.0 ** -7)
+    # exactly the bf16 rounding of the negated f32 sums
+    exact = -_bf16_sums(lut, codes)[:, valid]
+    np.testing.assert_allclose(got[:, :n][:, valid], exact, rtol=2.0 ** -8)
+
+
+@pytest.mark.parametrize("precise", [False, True])
+def test_scan_matches_pallas(rng, precise):
+    n = 512 + 130
+    lut, codes = _setup(rng, n, qn=8)
+    valid = np.ones(n, bool)
+    valid[5:9] = False
+    want = np.asarray(pa.adc_scan_pallas(
+        jnp.asarray(lut), jnp.asarray(codes), jnp.asarray(valid), tile_n=128,
+        precise=precise, interpret=True))
+    got = ta.adc_scan_kernel(*_t(lut, codes, valid), precise=precise).numpy()
+    assert got.shape == (8, n) and got.dtype == np.float32
+    assert np.isposinf(got[:, ~valid]).all()
+    np.testing.assert_allclose(got[:, valid], want[:, valid], rtol=1e-5)
+    ref = np.asarray(jpq.adc_scan(jnp.asarray(lut), jnp.asarray(codes),
+                                  jnp.asarray(valid)))
+    err = np.abs(got[:, valid] - ref[:, valid]).mean()
+    if precise:  # the hi/lo planes are near-f32
+        np.testing.assert_allclose(got[:, valid], ref[:, valid], rtol=2e-4)
+    else:
+        assert err > 0  # one bf16 pass is not
+
+
+def test_lut_hi_lo_planes(rng):
+    lut = torch.from_numpy(rng.random((3, 4, 16)).astype(np.float32) * 7)
+    hi, lo = ta.lut_hi_lo(lut)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    bits = lut.view(torch.int32)
+    assert torch.equal(hi.float().view(torch.int32), bits & -65536)
+    assert ((hi.float() + lo.float() - lut).abs() <= 2.0 ** -16 * lut.abs()).all()
+
+
+@pytest.mark.parametrize("m,k", [(12, 100), (3, 7)])
+def test_odd_widths(rng, m, k):
+    """M not a multiple of 16 and K below 256: the narrower code loads."""
+    n = 700
+    codes = rng.integers(0, k, size=(n, m)).astype(np.uint8)
+    lut = rng.random((5, m, k)).astype(np.float32)
+    valid = rng.random(n) > 0.3
+    got = ta.adc_scan_kernel(*_t(lut, codes, valid)).numpy()
+    want = np.where(valid[None, :], _bf16_sums(lut, codes), np.inf)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    ref = tpq.adc_scan(*_t(lut, codes, valid)).numpy()
+    np.testing.assert_allclose(got[:, valid], ref[:, valid], rtol=2.0 ** -7)
+
+
+def test_use_fused_gating_is_shape_only():
+    assert ta.use_fused_adc_pool(100_096, 256)
+    assert not ta.use_fused_adc_pool(10_112, 256)  # under MIN_ROWS_POOL
+    assert not ta.use_fused_adc_pool(16_384, 4096)  # bins do not cover ef
+    assert ta.use_fused_adc_pool(ta.MIN_ROWS_POOL, 128)
+
+
+def test_wide_lut_query_tile():
+    assert ta._query_tile("t", 512, 16, 256, 1) == 16
+    assert ta._query_tile("t", 512, 16, 256, 2) == 14  # two planes
+    assert ta._query_tile("t", 512, 64, 256, 1) == 7
+    assert ta._query_tile("t", 3, 16, 256, 1) == 3
+    with pytest.raises(ValueError, match="shared memory"):
+        ta._query_tile("t", 8, 512, 256, 1)
+
+
+def test_kernel_wrappers_reject_cpu_tensors():
+    lut = torch.zeros(2, 4, 16, dtype=torch.bfloat16)
+    codes = torch.zeros(300, 4, dtype=torch.uint8)
+    valid = torch.ones(300, dtype=torch.bool)
+    for call in (
+        lambda: ta.adc_pool_cuda(lut, codes, valid, tile=512, bins=128, fold=1, w=128),
+        lambda: ta.adc_scores_cuda(lut, codes, valid),
+        lambda: ta.adc_scan_cuda(lut, codes, valid),
+        lambda: ta.adc_scan_precise_cuda(lut, lut, codes, valid),
+    ):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()

@@ -125,7 +125,9 @@ def test_kernel_wrapper_rejects_cpu_tensors():
               pq_build_mode="always"), "A12"),
         (dict(sealed_search_mode="graph", graph_build_mode="always",
               pq_build_mode="always"), "A13"),
-        (dict(pq_build_mode="always"), "A12"),
+        # PQ training at seal is served; building the graph there is not
+        # (the message names A13 and points at A12's graph-less seal)
+        (dict(pq_build_mode="always", graph_build_mode="always"), "A12"),
         (dict(device_placement="round_robin"), "A15"),
         (dict(mesh=object()), "A15"),
     ],
@@ -136,8 +138,9 @@ def test_modes_outside_the_slice_raise(kw, item):
 
 
 def test_default_modes_raise_not_implemented():
-    # the config defaults stay the JAX package's (flat mode), which is not
-    # ported: a default config fails loudly instead of serving exact
+    # the config defaults stay the JAX package's (flat mode with the graph
+    # built at seal, which is not ported): a default config fails loudly
+    # instead of serving another mode
     with pytest.raises(NotImplementedError, match="flat"):
         tvs.VectorIndexConfig(storage=tvs.MemoryStorage(), name="d")
 
@@ -284,3 +287,107 @@ def test_concurrent_writers_and_readers_stay_consistent():
         sys.setswitchinterval(old)
         idx.close()
     assert not errors, errors[0]
+
+
+_FLAT_PROBE = r"""
+import sys
+import numpy as np
+import vectorsearch_torch as vs
+for unified in (False, True):
+    idx = vs.VectorIndex.create_or_open(vs.VectorIndexConfig(
+        storage=vs.MemoryStorage(), name="p", dimension=8, max_segment_size=64,
+        pq_m=4, pq_k=16, device="cpu", sealed_search_mode="flat",
+        graph_build_mode="skip_for_flat", pq_build_mode="always",
+        unified_search=unified))
+    x = np.random.default_rng(0).normal(size=(200, 8)).astype(np.float32)
+    idx.add_all(x)
+    for sid in (0, 1):
+        idx.build_service.build(sid)
+    assert idx.store.segments[0].codes_np.shape == (128, 4)
+    gids, _s, _d = idx.query_batch_arrays(x[:4], 3)
+    assert gids[:, 0].tolist() == [0, 1, 2, 3], gids
+    idx.close()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "vectorsearch_tpu")))
+print("LOADED", bad)
+"""
+
+
+def test_flat_port_runs_without_jax_or_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run(
+        [sys.executable, "-c", _FLAT_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_defaults_and_graph_mode_name_what_is_missing():
+    # the all-defaults config is flat mode with the graph built at seal
+    with pytest.raises(NotImplementedError, match="A13"):
+        tvs.VectorIndexConfig(storage=tvs.MemoryStorage(), name="d")
+    with pytest.raises(NotImplementedError, match="A14"):
+        _config(sealed_search_mode="graph", graph_build_mode="always",
+                pq_build_mode="always")
+    with pytest.raises(NotImplementedError, match="A13"):
+        _config(pq_build_mode="always", graph_build_mode="always")
+    # served: flat with a graph-less seal, and exact with PQ at seal
+    assert _config(sealed_search_mode="flat", pq_build_mode="always").sealed_search_mode == "flat"
+    assert _config(pq_build_mode="always").pq_build_mode == "always"
+
+
+def test_cuda_tensor_never_takes_the_plain_adc_paths(monkeypatch):
+    """Each ADC wrapper picks the plain version by the tensor's device only:
+    a CUDA tensor goes to the kernel wrapper, whose failure propagates."""
+    from vectorsearch_torch.ops import adc as ta
+
+    called = []
+
+    def no_kernel(*a, **k):
+        raise RuntimeError("kernel launch failed")
+
+    for plain, kernel in (
+        ("adc_pool_plain", "adc_pool_cuda"),
+        ("adc_scores_plain", "adc_scores_cuda"),
+        ("adc_scan_plain", "adc_scan_cuda"),
+        ("adc_scan_precise_plain", "adc_scan_precise_cuda"),
+    ):
+        monkeypatch.setattr(ta, plain, lambda *a, **k: called.append(1))
+        monkeypatch.setattr(ta, kernel, no_kernel)
+    lut = torch.rand(2, 4, 16)
+    codes = torch.zeros(300, 4, dtype=torch.uint8).as_subclass(_CudaLike)
+    valid = torch.ones(300, dtype=torch.bool)
+    for call in (
+        lambda: ta.adc_bin_pool(lut, codes, valid),
+        lambda: ta.adc_scan_scores(lut, codes, valid),
+        lambda: ta.adc_scan_kernel(lut, codes, valid),
+        lambda: ta.adc_scan_kernel(lut, codes, valid, precise=True),
+    ):
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            call()
+    assert not called
+
+
+def test_flat_snapshot_pairs_codes_with_flags_of_one_sync():
+    """Codes reach the device in the same locked sync as the flags; a seal
+    that replaces the codes drops the device copy, and a vacuumed row stays
+    masked (exists=False) whatever codes the device still holds."""
+    seg = _segment(100)
+    codes = np.arange(seg.cap_pad * 4, dtype=np.uint8).reshape(seg.cap_pad, 4)
+    seg.attach_build_artifacts(codes, np.zeros((4, 16, 2), np.float32),
+                               np.zeros((seg.cap_pad, 0), np.int32))
+    snap = seg.flat_snapshot()
+    assert torch.equal(snap.codes, torch.from_numpy(codes)) and snap.rows == 100
+    assert snap.codes is seg.flat_snapshot().codes  # uploaded once
+    seg.tombstone_batch(np.array([3]))
+    seg.remove_rows(np.array([5]))
+    snap2 = seg.flat_snapshot()
+    assert not bool(snap2.alive[3]) and bool(snap2.exists[3])
+    assert not bool(snap2.exists[5]) and not bool(snap2.alive[5])
+    assert bool(snap.exists[5])  # the earlier snapshot is untouched
+    seg.attach_build_artifacts(codes * 0, np.zeros((4, 16, 2), np.float32),
+                               np.zeros((seg.cap_pad, 0), np.int32))
+    assert not seg.flat_snapshot().codes.any()
+    assert seg.codebook_dev.shape == (4, 16, 2)

@@ -1,6 +1,7 @@
 """The port's ops (vectorsearch_torch/ops) held against the JAX package's
 (vectorsearch_tpu/ops) on the same numpy inputs: distances, exact_finalize,
-brute_force_topk (both routes) and merge_topk, plus the pool geometry.
+brute_force_topk (both routes), merge_topk and exact_rerank (one segment, and
+several at once), plus the pool geometry.
 
 Tolerances: distance matrices 1e-4 relative / 1e-4 absolute (both are f32
 products, summed in different orders); final distances as in the JAX tests
@@ -252,3 +253,51 @@ def test_use_fused_gating():
     assert te.use_fused_exact_pool(1_000_000, 128, 32)
     assert te.use_fused_exact_pool(te.MIN_ROWS, 16, 512)
     assert not te.use_fused_exact_pool(te.MIN_ROWS, 16, 513)
+
+
+def _rerank_case(rng, n=300, d=12, qn=7, c=20):
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[5] = 0.0  # a zero-norm row (cosine similarity 0)
+    q = rng.normal(size=(qn, d)).astype(np.float32)
+    alive = rng.random(n) > 0.2
+    cand = rng.integers(0, n, (qn, c)).astype(np.int32)
+    cand[:, -3:] = -1
+    cand[0, :4] = 5
+    return x, q, alive, cand
+
+
+@pytest.mark.parametrize("metric", ["L2", "COSINE"])
+def test_exact_rerank_matches_jax(rng, metric):
+    """Scores and distances 1e-5 relative (f32 sums of the same terms, in
+    other orders); -inf / +inf / -1 padding at -1 slots and tombstones."""
+    x, q, alive, cand = _rerank_case(rng)
+    got = ttr.exact_rerank(_t(q), _t(x), _t(alive), _t(cand), 10, metric)
+    want = jtr.exact_rerank(jnp.asarray(q), jnp.asarray(x), jnp.asarray(alive),
+                            jnp.asarray(cand), 10, metric)
+    (gs, gd, gi), (ws, wd, wi) = (tuple(np.asarray(t) for t in r) for r in (got, want))
+    np.testing.assert_allclose(gs, ws, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(gd, wd, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(gi == -1, wi == -1)
+    # ids agree wherever the score has no near neighbour in its row
+    sep = np.ones_like(gs, bool)
+    gap = np.abs(np.diff(ws, axis=1)) > 1e-5
+    sep[:, 1:] &= gap
+    sep[:, :-1] &= gap
+    np.testing.assert_array_equal(gi[sep], wi[sep])
+    assert alive[gi[gi >= 0]].all()
+
+
+def test_exact_rerank_segments_equals_each_segment_alone(rng):
+    """Several segments re-ranked in one call: each segment's result is the
+    one exact_rerank gives it alone, bit for bit."""
+    cases = [_rerank_case(rng) for _ in range(3)]
+    q = _t(cases[0][1])
+    cand = torch.stack([_t(c[3]) for c in cases])
+    tables = [(_t(c[0]), _t(c[2])) for c in cases]
+    for metric in ("L2", "COSINE"):
+        got = ttr.exact_rerank_segments(q, tables, cand, 8, metric)
+        assert got[0].shape == (3, q.shape[0], 8)
+        for i, (x, alive) in enumerate(tables):
+            alone = ttr.exact_rerank(q, x, alive, cand[i], 8, metric)
+            for a, b in zip(got, alone):
+                assert torch.equal(a[i], b)

@@ -8,12 +8,15 @@ needs (config, params, types, persistence, tasks, metrics) are its own
 copies, and the checkpoint/WAL format is the same, so an index written by
 either package opens in the other.
 
-This slice serves exact mode (``sealed_search_mode="exact"`` with
-``pq_build_mode="skip_for_exact"``) end to end: add, seal, query, merge and
-gid mapping, with the exact pool scan in a hand-written CUDA kernel
-(``csrc/exact_pool.cu``). Indexes run on ``config.device`` (default
-``"cuda"``); the CPU runs only when asked for with ``device="cpu"``.
-ROADMAP.md lists what is still to port.
+The port serves exact mode (``sealed_search_mode="exact"`` with
+``pq_build_mode="skip_for_exact"``) and flat mode (``sealed_search_mode=
+"flat"`` with ``graph_build_mode="skip_for_flat"``: PQ trained at seal, ADC
+candidate pools, exact re-rank) end to end: add, seal, query, merge and gid
+mapping. Its kernels are hand-written CUDA: the exact pool scan
+(``csrc/exact_pool.cu``) and the ADC pool and scans (``csrc/adc.cu``).
+Indexes run on ``config.device`` (default ``"cuda"``); the CPU runs only
+when asked for with ``device="cpu"``. ROADMAP.md lists what is still to
+port.
 """
 
 from vectorsearch_torch.config import (

@@ -5,9 +5,11 @@ Own copy of ``vectorsearch_tpu/config.py`` for the PyTorch port. Differences:
 with no CUDA device raises unless the caller asks for ``device="cpu"``), and
 the modes this port does not serve yet raise ``NotImplementedError`` naming
 the ROADMAP.md item that will port them. The defaults stay those of the JAX
-package, so a default config raises here: pass
-``sealed_search_mode="exact"``, ``graph_build_mode="skip_for_flat"`` and
-``pq_build_mode="skip_for_exact"``.
+package (flat mode with ``graph_build_mode="always"``), and the graph build
+is not ported, so a default config raises here: pass
+``graph_build_mode="skip_for_flat"`` (flat mode, PQ trained at seal), or
+``sealed_search_mode="exact"`` with ``graph_build_mode="skip_for_flat"`` and
+``pq_build_mode="skip_for_exact"`` (exact mode, no PQ).
 
 Mirrors the reference's config system (config/VectorIndexConfig.java:18-710,
 config/WorkerConfig.java:22-455, config/GlobalTaskQueueConfig.java:18-48):
@@ -458,21 +460,20 @@ class VectorIndexConfig:
     def _check_ported(self) -> None:
         """Modes the port does not serve yet fail loudly; they are never
         served another way."""
-        if self.sealed_search_mode == "flat":
-            raise NotImplementedError(
-                "sealed_search_mode='flat' is not ported to PyTorch yet "
-                "(ROADMAP.md Queue A12 and kernels B3-B4)"
-            )
         if self.sealed_search_mode == "graph":
             raise NotImplementedError(
-                "sealed_search_mode='graph' is not ported to PyTorch yet "
-                "(ROADMAP.md Queue A13-A14 and kernel B5)"
+                "sealed_search_mode='graph' is not ported to PyTorch yet: it "
+                "needs the graph build (ROADMAP.md Queue A13) and the graph "
+                "traversal (Queue A14)"
             )
-        if self.pq_build_mode == "always":
+        if self.graph_build_mode == "always":
+            # pq_build_mode="skip_for_exact" already requires skip_for_flat
             raise NotImplementedError(
-                "pq_build_mode='always' (PQ training at seal) is not ported "
-                "to PyTorch yet (ROADMAP.md Queue A12); use "
-                "pq_build_mode='skip_for_exact'"
+                f"sealed_search_mode={self.sealed_search_mode!r} with "
+                "graph_build_mode='always' builds the traversal graph at "
+                "seal, which is not ported to PyTorch yet (ROADMAP.md Queue "
+                "A13); flat mode and PQ training at seal (Queue A12) are "
+                "served with graph_build_mode='skip_for_flat'"
             )
         if self.mesh is not None:
             raise NotImplementedError(

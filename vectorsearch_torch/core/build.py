@@ -1,13 +1,19 @@
 """SegmentBuildService: the sealer (reference: tasks/SegmentBuildService.java:51-393).
 
-Mirrors ``vectorsearch_tpu/core/build.py`` for the two seals this port
-serves: an empty segment (zero codebook, reference :116-120,143-157) and the
-``pq_build_mode="skip_for_exact"`` seal, a metadata flip + checkpoint with
-zero-column codes and adjacency planes (no PQ or graph compute). PQ training
-and the graph build belong to the flat and graph slices (ROADMAP.md Queue
-A12-A13); the config refuses the modes that need them.
+Mirrors ``vectorsearch_tpu/core/build.py`` for the three seals this port
+serves:
+  - an empty segment: zero codebook (reference :116-120,143-157);
+  - ``pq_build_mode="skip_for_exact"``: a metadata flip + checkpoint with
+    zero-column codes and adjacency planes (no PQ or graph compute);
+  - ``pq_build_mode="always"`` with ``graph_build_mode="skip_for_flat"``: PQ
+    training and encoding on the segment's device (every written row,
+    tombstones included, as the reference encodes every stored record,
+    :159-185), a finite-codebook check that fails the build so the queue
+    retries, and a graph-less seal (zero-column adjacency).
+The graph build (ROADMAP.md Queue A13) and the mesh-sharded build (A15)
+raise; the config refuses the modes that need them.
 
-Builds run no device compute here, so the JAX package's per-device compute
+PyTorch compiles nothing per shape, so the JAX package's per-device compute
 lock (which serialized kernel compiles across build threads) has no
 counterpart.
 """
@@ -18,9 +24,11 @@ import logging
 import time
 
 import numpy as np
+import torch
 
 from vectorsearch_torch.config import VectorIndexConfig
 from vectorsearch_torch.core.store import VectorStore
+from vectorsearch_torch.ops import pq as pq_ops
 from vectorsearch_torch.types import SegmentState
 from vectorsearch_torch.utils.metrics import get_registry
 from vectorsearch_torch.utils.metrics import span as metrics_span
@@ -58,27 +66,63 @@ class SegmentBuildService:
                 return
             n_rows = seg.next_row
 
+        m, k, sub = cfg.pq_m, cfg.pq_k, cfg.sub_dim
         if n_rows == 0:
             # empty-segment build: zero codebook + SEALED (reference :116-120,143-157)
-            m, k, sub = cfg.pq_m, cfg.pq_k, cfg.sub_dim
             codes = np.zeros((seg.cap_pad, m), np.uint8)
             codebook = np.zeros((m, k, sub), np.float32)
             adjacency = np.full((seg.cap_pad, cfg.graph_degree), -1, np.int32)
             self._seal(seg_id, codes, codebook, adjacency)
             return
 
-        if cfg.pq_build_mode != "skip_for_exact":
-            raise NotImplementedError(
-                "PQ training and the graph build are not ported yet "
-                "(ROADMAP.md Queue A12-A13)"
+        if cfg.pq_build_mode == "skip_for_exact":
+            # Exact mode never reads codes/codebook/adjacency: sealing is a
+            # metadata flip + checkpoint. Zero-column planes mark the segment
+            # PQ-less and graph-less, as in the JAX package.
+            self._seal(
+                seg_id,
+                np.zeros((seg.cap_pad, 0), np.uint8),
+                np.zeros((0, 0, 0), np.float32),
+                np.zeros((seg.cap_pad, 0), np.int32),
             )
-        # Exact mode never reads codes/codebook/adjacency: sealing is a
-        # metadata flip + checkpoint. Zero-column planes mark the segment
-        # PQ-less and graph-less, as in the JAX package.
+            return
+        if cfg.mesh is not None:
+            raise NotImplementedError(
+                "the mesh-sharded PQ build is not ported to PyTorch yet "
+                "(ROADMAP.md Queue A15)"
+            )
+        if not (
+            cfg.graph_build_mode == "skip_for_flat"
+            and cfg.sealed_search_mode in ("flat", "exact")
+        ):
+            raise NotImplementedError(
+                "the graph build at seal is not ported to PyTorch yet "
+                "(ROADMAP.md Queue A13); flat and exact mode seal graph-less "
+                "with graph_build_mode='skip_for_flat'"
+            )
+
+        # every written row, tombstones included; the logical dim, since the
+        # PQ subspace split (m x sub = dim) must see the unpadded width
+        with self.store.lock:
+            vectors = np.array(seg.vectors_np[:, : seg.dim])  # [cap_pad, D]
+            exists = np.array(seg.exists_np)
+        dev = seg.device
+        xs = torch.from_numpy(vectors).to(dev)
+        ex = torch.from_numpy(exists).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(cfg.pq_train_seed)
+        codebook = pq_ops.pq_train(
+            xs, ex, m=m, k=k, iters=cfg.pq_train_iters, generator=gen
+        )
+        if not bool(torch.isfinite(codebook).all()):
+            # fail the build so the queue retries (reference :174-185)
+            raise RuntimeError(
+                f"PQ training failed for segment {seg_id} (m={m}, k={k})"
+            )
+        codes = pq_ops.pq_encode(xs, codebook, ex)
+        # flat/exact search never reads adjacency: a zero-column plane marks
+        # the segment graph-less
         self._seal(
-            seg_id,
-            np.zeros((seg.cap_pad, 0), np.uint8),
-            np.zeros((0, 0, 0), np.float32),
+            seg_id, codes.cpu().numpy(), codebook.cpu().numpy(),
             np.zeros((seg.cap_pad, 0), np.int32),
         )
 

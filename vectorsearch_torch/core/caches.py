@@ -1,8 +1,11 @@
 """Segment caches: codebook + adjacency device-residency tracking with stats
 (reference: cache/SegmentCaches.java:33-271).
 
-Own copy of ``vectorsearch_tpu/core/caches.py`` for the PyTorch port, cut to
-what exact mode uses: the device-residency budget and LRU eviction.
+Own copy of ``vectorsearch_tpu/core/caches.py`` for the PyTorch port: the
+codebook loader and gauges of the flat path, the device-residency budget and
+LRU eviction. The adjacency loader belongs to the traversal slice (ROADMAP.md
+Queue A14): no sealed segment's graph goes to the device yet, so its gauge
+reads 0.
 
 The reference caches decoded codebooks and adjacency rows loaded from FDB. In
 the TPU design those artifacts live in each sealed segment's device bundle, so
@@ -40,15 +43,42 @@ class SegmentCaches:
         self._last_access: dict[int, float] = {}  # seg_id -> monotonic
         self._metrics = get_registry(metric_attributes)
 
-    # ------------------------------------------------------ codebook/adjacency
+    # ---------------------------------------------------------------- codebook
 
-    # Exact-mode segments hold no PQ codebook and no graph on the device, so
-    # both caches are empty in this port; the flat and graph slices
-    # (ROADMAP.md Queue A12-A14) bring the loaders back. The size gauges keep
-    # the reference's metric names.
+    def get_codebook(self, seg):
+        """Device codebook for a sealed segment (loads on miss)."""
+        attrs = {"cache": "codebook"}
+        with seg._dev_lock:
+            resident = seg._codebook_dev is not None
+        if resident:
+            self._metrics.inc("vectorsearch.cache.hit", attrs=attrs)
+        else:
+            self._metrics.inc("vectorsearch.cache.miss", attrs=attrs)
+        cb = seg.codebook_dev
+        if cb is None:
+            self._metrics.inc("vectorsearch.cache.load_failure", attrs=attrs)
+        elif not resident:
+            self._metrics.inc("vectorsearch.cache.load_success", attrs=attrs)
+        return cb
+
+    def prefetch_codebooks(self, segments) -> None:
+        """Warms codebooks for sealed segments (reference:
+        fdb/FdbVectorIndex.java:377-416 codebook prefetch)."""
+        for seg in segments:
+            if seg.codebook_np is not None:
+                self.get_codebook(seg)
 
     def codebook_cache_size(self) -> int:
-        return 0
+        with self.store.lock:
+            segs = list(self.store.segments.values())
+        n = 0
+        for seg in segs:
+            with seg._dev_lock:
+                if seg._codebook_dev is not None:
+                    n += 1
+        return n
+
+    # --------------------------------------------------------------- adjacency
 
     def adjacency_cache_size(self) -> int:
         return 0

@@ -1,32 +1,43 @@
 """VectorIndex: the public entry point + query engine
 (reference: api/VectorIndex.java:32-200, fdb/FdbVectorIndex.java:62-1080).
 
-Mirrors ``vectorsearch_tpu/core/index.py`` in exact mode
-(``sealed_search_mode="exact"``), the slice this port serves:
+Mirrors ``vectorsearch_tpu/core/index.py`` in exact and flat mode
+(``sealed_search_mode="exact"`` / ``"flat"``), the slices this port serves:
 
 - snapshot the segment registry;
 - ACTIVE/PENDING segments -> brute force, one flattened product per
   capacity group (``_stacked_brute_query`` -> ops/topk.brute_force_topk);
-- SEALED/COMPACTING segments -> the exact pool over raw vectors: groups of
-  same-capacity segments in power-of-two subgroups (11 segments -> 8+2+1),
-  each one binned pool over the flattened subgroup
-  (``_unified_exact_query``), singletons per segment
-  (``_sealed_exact_query``); WRITING segments are invisible;
+- SEALED/COMPACTING segments, grouped by capacity:
+  - exact: the exact pool over raw vectors, power-of-two subgroups
+    (11 segments -> 8+2+1) each as one binned pool over the flattened
+    subgroup (``_unified_exact_query``), singletons per segment
+    (``_sealed_exact_query``);
+  - flat: per segment, LUT -> ADC candidate pool -> exact re-rank, the
+    segments of a group batched into each call (``_flat_segments_query``);
+    with ``unified_search=True`` power-of-two subgroups share one ADC
+    top-ef over the whole subgroup (``_unified_flat_query``);
+  - graph-less segments asked for a traversal (BEAM, RANDOM_PIVOTS) are
+    served from their pool, PQ-less ones from the exact pool (warn-once);
+    a segment with a traversal graph asked for a traversal raises (A14);
+  WRITING segments are invisible;
 - merge every group by score, truncate to k, map (slot, row) to gids on the
   host.
 
 What the JAX package has and this port does not (yet): ``jit`` and the
 compile-warming machinery (the sync-ladder warm-up, shape warming after
 rotations) have no counterpart, since PyTorch runs eagerly and compiles
-nothing per shape; the sampled split-phase breakdown profiling, the
-graph/flat programs, mesh and multi-device merges belong to later slices
-(ROADMAP.md Queue A11-A15), as do vacuum scheduling, compaction and the
-async facade with its QueryBatcher.
+nothing per shape; the asynchronous codebook prefetch (codebooks load on
+first use; ``prefetch_codebooks_sync`` loads them before the batch); the
+sampled split-phase breakdown profiling, graph traversal, mesh and
+multi-device merges belong to later slices (ROADMAP.md Queue A11-A15), as
+do vacuum scheduling, compaction and the async facade with its
+QueryBatcher.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import time
 from typing import Optional, Sequence
 
@@ -47,6 +58,7 @@ from vectorsearch_torch.core.tasks import (
 )
 from vectorsearch_torch.ops import distance as distance_ops
 from vectorsearch_torch.ops import exact as exact_ops
+from vectorsearch_torch.ops import pq as pq_ops
 from vectorsearch_torch.ops import topk as topk_ops
 from vectorsearch_torch.ops import traversal as traversal_ops
 from vectorsearch_torch.params import Mode, SearchParams, SeedStrategy
@@ -57,6 +69,10 @@ from vectorsearch_torch.utils.metrics import span as metrics_span
 
 LOG = logging.getLogger("vectorsearch_torch.index")
 
+# The flat re-rank gathers [segments, Q, ef_buf, D] f32 rows at once; a
+# group's segments go through it in batches that keep that block under this.
+_RERANK_BLOCK_BYTES = 1 << 29
+
 
 def _bucket(n: int, lo: int = 16) -> int:
     """Rounds up to a power of two (the JAX package's ef buckets)."""
@@ -64,6 +80,27 @@ def _bucket(n: int, lo: int = 16) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _graphless(seg) -> bool:
+    """Sealed with graph_build_mode="skip_for_flat": the zero-column
+    adjacency plane marks the segment as having no traversal graph."""
+    return seg.adjacency_np is not None and seg.adjacency_np.shape[1] == 0
+
+
+def _pqless(seg) -> bool:
+    """Sealed with pq_build_mode="skip_for_exact": the zero-column codes
+    plane marks the segment as having no PQ artifacts; it can only be
+    served from the exact (raw-vector) pool."""
+    return seg.codes_np is not None and seg.codes_np.shape[1] == 0
+
+
+def _traversal_not_ported() -> NotImplementedError:
+    return NotImplementedError(
+        "graph traversal (BEAM mode, RANDOM_PIVOTS or sealed_search_mode="
+        "'graph' against segments that carry a graph) is not ported to "
+        "PyTorch yet (ROADMAP.md Queue A14)"
+    )
 
 
 def _pad_cols(q: torch.Tensor, d: int) -> torch.Tensor:
@@ -123,6 +160,73 @@ def _unified_exact_query(q, stack, slot_base: int, *, ef_buf, rr, metric):
     return scores, dists, vid.to(torch.int32), slot.to(torch.int32)
 
 
+def _flat_segments_query(q, segs, codebooks, slot_base: int, *, ef_dyn,
+                         ef_buf, rr, metric, flat_strict):
+    """Same-capacity sealed segments in flat mode, each searched on its own
+    (``_sealed_query_slot_step`` with flat=True in the JAX package, once per
+    segment), in batched calls: one LUT product for every codebook, one ADC
+    pool per segment into one plane (the binned pool kernel at >= 16,384
+    rows, the scores-scan kernel + exact top-k below), one stage-2 top-k and
+    one exact re-rank. The pool covers ``exists`` (tombstones take pool
+    slots and drop at re-rank, as in the JAX package); the re-rank covers
+    ``alive``. Each segment's codes and flags come from one sync.
+    ``flat_strict`` masks each segment's descending pool down to its
+    dynamic ef (``ef_dyn``, one per segment), the reference's literal
+    efSearch contract (config.flat_ef_semantics); the default keeps the full
+    buffer. Returns (scores, dists, rows, slots), each [Q, S*rr'] with one
+    block of columns per segment."""
+    snaps = [seg.flat_snapshot() for seg in segs]
+    luts = pq_ops.build_luts(q, torch.stack(codebooks))
+    neg, idx = pq_ops.adc_pools_auto(
+        luts, [sn.codes for sn in snaps], [sn.exists for sn in snaps],
+        ef_buf=ef_buf,
+    )
+    ok = neg > float("-inf")
+    if flat_strict:
+        lim = torch.tensor(ef_dyn, device=idx.device)[:, None, None]
+        ok = ok & (torch.arange(idx.shape[2], device=idx.device) < lim)
+    cand = torch.where(ok, idx, -1)
+    sc, di, iv = traversal_ops.exact_rerank_segments(
+        q, [(sn.vectors, sn.alive) for sn in snaps], cand, rr, metric,
+    )
+    s_count, qn, kk = iv.shape
+    slot = slot_base + torch.arange(s_count, device=iv.device, dtype=torch.int32)
+    slot = torch.where(iv >= 0, slot[:, None, None], -1).to(torch.int32)
+    return tuple(
+        t.permute(1, 0, 2).reshape(qn, s_count * kk) for t in (sc, di, iv, slot)
+    )
+
+
+def _unified_flat_query(q, stack, slot_base: int, *, ef_dyn, ef_buf, rr,
+                        metric, flat_strict):
+    """A subgroup of same-capacity sealed segments searched as one corpus
+    (``_unified_sealed_query`` with flat=True in the JAX package): one ADC
+    distance scan per segment (the B5 kernel), ONE top-ef over [Q, S*N]
+    with global row ids, one exact re-rank over the flattened subgroup.
+    The ef is shared per query over the whole subgroup, not spent in every
+    segment (config.unified_search)."""
+    s_count, n, d = stack.vectors.shape
+    luts = pq_ops.build_luts(q, stack.codebooks)
+    approx = torch.cat([
+        pq_ops.adc_scan_auto(luts[i], stack.codes[i], stack.exists[i])
+        for i in range(s_count)
+    ], dim=1)  # [Q, S*N]
+    neg, idx = torch.topk(-approx, min(ef_buf, approx.shape[1]), dim=1)
+    del approx
+    ok = torch.isfinite(neg)
+    if flat_strict:
+        ok = ok & (torch.arange(idx.shape[1], device=idx.device)[None, :] < ef_dyn)
+    cand = torch.where(ok, idx.to(torch.int32), -1)
+    scores, dists, gidx = traversal_ops.exact_rerank(
+        q, stack.vectors.reshape(s_count * n, d), stack.alive.reshape(-1),
+        cand, rr, metric,
+    )
+    seg_of = torch.div(gidx, n, rounding_mode="floor")
+    vid = torch.where(gidx >= 0, gidx - seg_of * n, -1)
+    slot = torch.where(gidx >= 0, slot_base + seg_of, -1)
+    return scores, dists, vid.to(torch.int32), slot.to(torch.int32)
+
+
 def _stacked_brute_query(q, x_flat, valid_flat, slot_base, k, metric,
                          n_per_seg, xn2=None):
     """ALL brute-force segments of one capacity in one flattened product +
@@ -161,6 +265,8 @@ class VectorIndex:
         self.config = config
         self.device = config.device
         self._beam_warned = False
+        self._graphless_warned = False
+        self._pqless_warned = False
         self._closed = False
         self._metrics = get_registry(config.metric_attributes)
 
@@ -429,21 +535,67 @@ class VectorIndex:
                 )
             )
 
-        # --- sealed segments: exact pools per capacity group ---
-        # RANDOM_PIVOTS is a traversal concept; against exact-mode segments
-        # the JAX package serves it per segment from the exact pool, and so
-        # does this port.
+        # --- sealed segments: per capacity group ---
+        # Flat and exact are BEST_FIRST pools; BEAM and RANDOM_PIVOTS are
+        # traversal concepts, served from the pools only for graph-less
+        # segments (the JAX package traverses segments that have a graph).
+        mode_cfg = self.config.sealed_search_mode
+        flat = mode_cfg == "flat" and params.mode == Mode.BEST_FIRST
+        exact = mode_cfg == "exact" and params.mode == Mode.BEST_FIRST
+        flat_strict = self.config.flat_ef_semantics == "strict"
         use_stacked = params.seed_strategy != SeedStrategy.RANDOM_PIVOTS
+        if (
+            self.config.effective.prefetch_codebooks_enabled
+            and self.config.effective.prefetch_codebooks_sync
+            and sealed_segs
+        ):
+            # reference :377-416; without sync, codebooks load on first use
+            self.caches.prefetch_codebooks(sealed_segs)
         sgroups: dict[int, list[Segment]] = {}
         for seg in sealed_segs:
             sgroups.setdefault(seg.cap_pad, []).append(seg)
         for cap, group in sgroups.items():
-            # the pool covers k plus bin-collision slack (4k), not efSearch:
-            # there is no lossy scan to make up for, and tombstones are
-            # masked out of the ranking
-            ef_buf = min(_bucket(max(4 * k, 32)), cap)
+            # graph-less segments: a traversal request falls back to the
+            # pool (never worse: the flat pool dominates a traversal pool at
+            # equal ef); PQ-less segments only have the exact pool
+            gflat, gexact = flat, exact
+            if not (gflat or gexact) and any(_graphless(seg) for seg in group):
+                self._warn_graphless_once()
+                if mode_cfg == "exact":
+                    gexact = True
+                else:
+                    gflat = True
+            if not gexact and any(_pqless(seg) for seg in group):
+                self._warn_pqless_once()
+                gflat, gexact = False, True
+            if not use_stacked:
+                for seg in group:
+                    res = self._search_sealed(qd, seg, k, per_seg_limit, params)
+                    if res is None:
+                        continue
+                    base = len(seg_list)
+                    seg_list.append(seg)
+                    sc, di, iv = res
+                    entries.append(
+                        (sc, di, iv, torch.where(iv >= 0, base, -1).to(torch.int32))
+                    )
+                continue
+            if not (gflat or gexact):
+                raise _traversal_not_ported()
+            if gexact:
+                # the pool covers k plus bin-collision slack (4k), not
+                # efSearch: there is no lossy scan to make up for, and
+                # tombstones are masked out of the ranking
+                ef_buf = min(_bucket(max(4 * k, 32)), cap)
+            else:
+                tuned_max = max(self._auto_tune(seg, k, params)[0] for seg in group)
+                ef_buf = min(_bucket(max(tuned_max, k)), cap)
             approx_bytes = len(group) * nq_dev * cap * 4
-            if use_stacked and len(group) > 1 and approx_bytes <= (1 << 31):
+            if (
+                (self.config.unified_search or gexact)
+                and len(group) > 1
+                and approx_bytes <= (1 << 31)
+            ):
                 # power-of-two subgroups (11 segments -> 8+2+1); singletons
                 # fall through to the per-segment path
                 rest: list = []
@@ -456,25 +608,58 @@ class VectorIndex:
                     if len(sub) == 1:
                         rest.extend(sub)
                         continue
-                    stack = self._stacks.sealed(sub)
+                    stack = self._stacks.sealed(sub, pq=gflat)
                     base = len(seg_list)
                     seg_list.extend(sub)
-                    u_ef_buf = min(_bucket(max(4 * k, 32)), len(sub) * cap)
+                    if gexact:
+                        u_ef_buf = min(_bucket(max(4 * k, 32)), len(sub) * cap)
+                        entries.append(
+                            _unified_exact_query(
+                                qd, stack, base, ef_buf=u_ef_buf,
+                                rr=min(per_seg_limit * len(sub), u_ef_buf),
+                                metric=metric,
+                            )
+                        )
+                        continue
+                    total_codes = sum(seg.exists_count() for seg in sub)
+                    u_ef, _u_beam = self._auto_tune_n(total_codes, k, params)
+                    u_ef_buf = min(_bucket(max(u_ef, k)), len(sub) * cap)
                     entries.append(
-                        _unified_exact_query(
-                            qd, stack, base, ef_buf=u_ef_buf,
+                        _unified_flat_query(
+                            qd, stack, base, ef_dyn=u_ef, ef_buf=u_ef_buf,
                             rr=min(per_seg_limit * len(sub), u_ef_buf),
-                            metric=metric,
+                            metric=metric, flat_strict=flat_strict,
                         )
                     )
                 group = rest
-            for seg in group:
+            rr = min(per_seg_limit, ef_buf)
+            if gexact:
+                for seg in group:
+                    base = len(seg_list)
+                    seg_list.append(seg)
+                    entries.append(
+                        _sealed_exact_query(
+                            qd, seg, base, ef_buf=ef_buf, rr=rr, metric=metric,
+                        )
+                    )
+                continue
+            if not group:
+                continue
+            # flat, per segment: batches of segments share each call, as
+            # many as keep the re-rank's gathered block under its budget
+            per_call = max(1, _RERANK_BLOCK_BYTES // max(
+                1, nq_dev * ef_buf * group[0].d_pad * 4))
+            for i in range(0, len(group), per_call):
+                chunk = group[i : i + per_call]
                 base = len(seg_list)
-                seg_list.append(seg)
+                seg_list.extend(chunk)
                 entries.append(
-                    _sealed_exact_query(
-                        qd, seg, base, ef_buf=ef_buf,
-                        rr=min(per_seg_limit, ef_buf), metric=metric,
+                    _flat_segments_query(
+                        qd, chunk, [self.caches.get_codebook(s) for s in chunk],
+                        base,
+                        ef_dyn=[self._auto_tune(s, k, params)[0] for s in chunk],
+                        ef_buf=ef_buf, rr=rr, metric=metric,
+                        flat_strict=flat_strict,
                     )
                 )
 
@@ -572,6 +757,70 @@ class VectorIndex:
             ]
             for qi in range(nq)
         ]
+
+    # -- auto-tune (verbatim formulas, reference :772-784) --------------------
+
+    def _auto_tune(self, seg: Segment, k: int, params: SearchParams) -> tuple[int, int]:
+        """Returns (tuned_ef, tuned_beam) for a sealed segment."""
+        return self._auto_tune_n(seg.exists_count(), k, params)
+
+    def _auto_tune_n(self, n_codes: int, k: int, params: SearchParams) -> tuple[int, int]:
+        base_ef = max(params.ef_search, k * max(1, params.per_segment_limit_multiplier))
+        scale = int(max(1, round(math.sqrt(max(1, n_codes) / 1000.0))))
+        tuned_ef = min(params.max_explore, max(base_ef, min(n_codes, base_ef * scale)))
+        tuned_beam = max(
+            1,
+            min(n_codes, max(params.beam_width, min(64, math.ceil(math.sqrt(n_codes))))),
+        )
+        return tuned_ef, tuned_beam
+
+    # -- sealed path, RANDOM_PIVOTS against graph-less segments ---------------
+
+    def _warn_graphless_once(self) -> None:
+        if not self._graphless_warned:
+            self._graphless_warned = True
+            LOG.warning(
+                "traversal-mode query against segments sealed with "
+                "graphBuildMode='skip_for_flat' (no adjacency); falling back "
+                "to the flat pool (this warning is logged once)"
+            )
+
+    def _warn_pqless_once(self) -> None:
+        if not self._pqless_warned:
+            self._pqless_warned = True
+            LOG.warning(
+                "PQ-scanning query mode against segments sealed with "
+                "pqBuildMode='skip_for_exact' (no codes); serving them from "
+                "the exact raw-vector pool (this warning is logged once)"
+            )
+
+    def _search_sealed(self, qd, seg: Segment, k: int, limit: int,
+                       params: SearchParams):
+        """One sealed segment under RANDOM_PIVOTS (reference :730-837). A
+        graph-less segment is served from its pool instead (the JAX
+        package's ``_search_sealed`` graph-less branch): the exact pool in
+        exact mode or for a PQ-less segment, else the flat pool. Returns
+        (scores, dists, rows) or None for a segment with no rows."""
+        if seg.exists_count() == 0:
+            return None
+        if not _graphless(seg):
+            raise _traversal_not_ported()
+        self._warn_graphless_once()
+        metric = self.config.metric
+        if self.config.sealed_search_mode == "exact" or _pqless(seg):
+            ef_buf = min(_bucket(max(4 * k, 32)), seg.cap_pad)
+            sc, di, iv, _slots = _sealed_exact_query(
+                qd, seg, 0, ef_buf=ef_buf, rr=min(limit, ef_buf), metric=metric,
+            )
+            return sc, di, iv
+        tuned_ef, _tb = self._auto_tune(seg, k, params)
+        ef_buf = min(_bucket(max(tuned_ef, k)), seg.cap_pad)
+        sc, di, iv, _slots = _flat_segments_query(
+            qd, [seg], [self.caches.get_codebook(seg)], 0, ef_dyn=[tuned_ef],
+            ef_buf=ef_buf, rr=min(limit, ef_buf), metric=metric,
+            flat_strict=self.config.flat_ef_semantics == "strict",
+        )
+        return sc, di, iv
 
     def _query_pad_bucket(self, nq: int) -> int:
         """config.query_batch_pad doubled until it covers nq; <= 1 disables."""

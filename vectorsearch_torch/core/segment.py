@@ -16,8 +16,13 @@ the snapshot they started with. The port keeps that contract by copying on
 write: ``sync_device`` clones a plane, writes the clone, and then publishes
 it. A tensor a query already holds is never written in place.
 
-Sealed PQ/graph artifacts stay host-side planes here (exact mode never reads
-them on the device; the skip_for_exact seal stores zero-column planes).
+Sealed artifacts: the PQ codes (u8[cap_pad, M]) and the codebook go to the
+device on the flat path's first use; the adjacency stays a host plane (the
+traversal slice, ROADMAP.md Queue A14, has no device reader yet). A flat
+query reads vectors, flags and codes from ONE locked sync
+(``flat_snapshot``), so it never pairs the codes of one sync with the flags
+of another. Once on the device the codes are never rewritten: a vacuumed
+row's codes stay stale there under exists=False, as its vectors do.
 """
 
 from __future__ import annotations
@@ -54,6 +59,17 @@ class DeviceSnapshot(NamedTuple):
     exists: torch.Tensor  # bool[cap_pad]
     xn2: torch.Tensor  # f32[cap_pad] squared row norms
     rows: int  # rows [0, rows) are on the device
+
+
+class FlatSnapshot(NamedTuple):
+    """A sealed segment's planes for the flat (PQ) path, from one sync (see
+    Segment.flat_snapshot)."""
+
+    vectors: torch.Tensor  # f32[cap_pad, d_pad]
+    alive: torch.Tensor  # bool[cap_pad]
+    exists: torch.Tensor  # bool[cap_pad]
+    codes: torch.Tensor  # u8[cap_pad, M]
+    rows: int
 
 
 #: Max rows shipped per incremental append put: bounds the query path's
@@ -112,6 +128,8 @@ class Segment:
         # vectors tensor they were computed from
         self._xn2_dev: Optional[torch.Tensor] = None
         self._xn2_src: Optional[torch.Tensor] = None
+        self._codes_dev: Optional[torch.Tensor] = None
+        self._codebook_dev: Optional[torch.Tensor] = None
         # (row ids, alive value, exists value) batches: tombstones queue
         # (ids, False, True), physical clears queue (ids, False, False)
         self._pending_flag_updates: list[tuple[np.ndarray, bool, bool]] = []
@@ -128,6 +146,16 @@ class Segment:
 
     def remaining_capacity(self) -> int:
         return self.capacity - self.next_row
+
+    def exists_count(self) -> int:
+        """Rows with data (tombstones included), cached by version."""
+        key = (self.version, self.flags_version)
+        cached = getattr(self, "_exists_count_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        n = int(np.count_nonzero(self.exists_np[: self.next_row]))
+        self._exists_count_cache = (key, n)
+        return n
 
     def append_rows(self, rows: np.ndarray, payloads: list) -> list[int]:
         """Appends rows (host side); returns the assigned vector ids."""
@@ -243,6 +271,9 @@ class Segment:
         self.codebook_np = codebook
         self.adjacency_np = adjacency
         self.version += 1
+        with self._dev_lock:
+            self._codes_dev = None
+            self._codebook_dev = None
 
     def device_resident_bytes(self) -> int:
         """Device bytes held by this segment's mirrors (reads the private
@@ -250,7 +281,10 @@ class Segment:
         with self._dev_lock:
             return sum(
                 a.numel() * a.element_size()
-                for a in (self._vectors_dev, self._alive_dev, self._exists_dev)
+                for a in (
+                    self._vectors_dev, self._alive_dev, self._exists_dev,
+                    self._codes_dev, self._codebook_dev,
+                )
                 if a is not None
             )
 
@@ -260,6 +294,8 @@ class Segment:
             self._vectors_dev = None
             self._alive_dev = None
             self._exists_dev = None
+            self._codes_dev = None
+            self._codebook_dev = None
             self._dev_rows = 0
             self._pending_flag_updates.clear()
 
@@ -356,6 +392,30 @@ class Segment:
                 v, self._alive_dev, self._exists_dev, self._xn2_dev,
                 self._dev_rows,
             )
+
+    def flat_snapshot(self) -> FlatSnapshot:
+        """Vectors, flags and PQ codes from ONE sync, under one lock (the
+        flat path's counterpart of device_snapshot). The codes go to the
+        device on first use after the seal."""
+        with self._dev_lock:
+            self._sync_locked()
+            if self._codes_dev is None:
+                if self.codes_np is None:
+                    raise ValueError(f"segment {self.seg_id} has no PQ codes")
+                self._codes_dev = self._put(self.codes_np)
+            return FlatSnapshot(
+                self._vectors_dev, self._alive_dev, self._exists_dev,
+                self._codes_dev, self._dev_rows,
+            )
+
+    @property
+    def codebook_dev(self) -> Optional[torch.Tensor]:
+        """The sealed codebook f32[M, K, D/M] on the device (uploaded on
+        first use); None before the seal."""
+        with self._dev_lock:
+            if self._codebook_dev is None and self.codebook_np is not None:
+                self._codebook_dev = self._put(self.codebook_np)
+            return self._codebook_dev
 
     def append_backlog(self) -> int:
         """Advisory (lock-free) count of appended rows not yet on the device

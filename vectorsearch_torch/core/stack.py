@@ -1,12 +1,15 @@
 """Segment stacking: batch same-shape segments into one device call.
 
-Mirrors ``vectorsearch_tpu/core/stack.py`` (the lean, exact-mode form: the
-PQ and graph planes of full sealed stacks belong to the flat and graph
-slices). Segments with the same capacity stack into
+Mirrors ``vectorsearch_tpu/core/stack.py``. Segments with the same capacity
+stack into
 
-  vectors  f32[S, N, D]   exists/alive bool[S, N]   (sealed)
+  vectors  f32[S, N, D]   exists/alive bool[S, N]   (sealed; exact mode)
+  + codes  u8[S, N, M]    codebooks f32[S, M, K, sub] (sealed, ``pq=True``:
+                                                     the unified flat route)
   vectors  f32[S_pad*N, D] alive bool[S_pad*N]     (brute force, flattened)
 
+(the graph plane of full sealed stacks belongs to the traversal slice,
+ROADMAP.md Queue A14).
 so all sealed segments of a power-of-two subgroup are searched by one pool
 and all brute-force segments by one product.
 
@@ -50,17 +53,27 @@ def _flags_upto(flags: torch.Tensor, snap_rows: int, rows: int) -> torch.Tensor:
 
 
 class SealedStack:
-    def __init__(self, segments: Sequence[Segment]):
+    def __init__(self, segments: Sequence[Segment], pq: bool = False):
+        """``pq=True`` (the unified flat route): the members' PQ codes and
+        codebooks are stacked too, each member's codes from the same sync
+        as its flags (Segment.flat_snapshot); the exact route's squared
+        norms are not."""
         self.segments = list(segments)
         self._lock = threading.Lock()
         self._flag_versions = [s.flags_version for s in segments]
-        snaps = [s.device_snapshot() for s in segments]
+        if pq:
+            snaps = [s.flat_snapshot() for s in segments]
+            self.codes = torch.stack([sn.codes for sn in snaps])
+            self.codebooks = torch.stack([s.codebook_dev for s in segments])
+            self.xn2 = None
+        else:
+            snaps = [s.device_snapshot() for s in segments]
+            # f32[S, N] squared norms, stacked from the members' cached planes
+            self.xn2 = torch.stack([sn.xn2 for sn in snaps])
         self._rows = [sn.rows for sn in snaps]
         self.vectors = _pad_dim(torch.stack([sn.vectors for sn in snaps]))
         self.exists = torch.stack([sn.exists for sn in snaps])
         self.alive = torch.stack([sn.alive for sn in snaps])
-        # f32[S, N] squared norms, stacked from the members' cached planes
-        self.xn2 = torch.stack([sn.xn2 for sn in snaps])
 
     def refresh_flags(self) -> None:
         """Re-stacks ONLY the bool flag planes when members' tombstone state
@@ -157,14 +170,14 @@ class StackCache:
     def _key(segments: Sequence[Segment]) -> tuple:
         return tuple((s.seg_id, s.version) for s in segments)
 
-    def sealed(self, segments: Sequence[Segment]) -> SealedStack:
-        key = self._key(segments)
+    def sealed(self, segments: Sequence[Segment], pq: bool = False) -> SealedStack:
+        key = ("sealed-pq" if pq else "sealed", self._key(segments))
         with self._lock:
             st = self._sealed.get(key)
         if st is not None:
             st.refresh_flags()
             return st
-        st = SealedStack(segments)
+        st = SealedStack(segments, pq=pq)
         with self._lock:
             if len(self._sealed) >= self._max:
                 self._sealed.clear()  # stacks rebuild cheaply from device arrays

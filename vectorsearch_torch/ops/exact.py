@@ -27,15 +27,12 @@ Intended differences from the JAX package (ROADMAP.md Queue C):
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 
 import torch
 
 from vectorsearch_torch.ops.distance import matmul_nt
+from vectorsearch_torch.utils import cuda_build
 
 _BINS = 128  # one 128-wide row of bins per 1024 rows of tile
 
@@ -89,73 +86,15 @@ def _stage1_params(qn: int, d: int, n: int, tile_n: int | None,
 # ------------------------------------------------------------- the kernel
 
 
-_KERNEL_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "csrc", "exact_pool.cu",
-)
-_BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
-)
-_lib_lock = threading.Lock()
-_lib = None
-
-
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the exact-pool kernel builds from "
-                       f"{_KERNEL_SRC} with the CUDA toolkit")
-
-
-def build_kernel() -> tuple[str, str]:
-    """Compiles csrc/exact_pool.cu for sm_90a into _build/ (if that source's
-    library is not there yet) and returns (library path, compiler output).
-    The library name carries a hash of the source, so a stale build is never
-    loaded; the build writes a temporary file and renames it, so concurrent
-    builders never load a half-written library."""
-    with open(_KERNEL_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    lib_path = os.path.join(_BUILD_DIR, f"libexact_pool_{digest}.so")
-    if os.path.exists(lib_path):
-        return lib_path, ""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.tmp.{os.getpid()}.so"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-        "-o", tmp, _KERNEL_SRC,
-    ]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib_path, proc.stdout + proc.stderr
+def _bind(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.exact_pool_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.exact_pool_launch.restype = ctypes.c_int
 
 
 def _load_kernel():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            path, _ = build_kernel()
-            lib = ctypes.CDLL(path)
-            p = ctypes.c_void_p
-            i = ctypes.c_int
-            lib.exact_pool_launch.argtypes = [
-                p, p, p, p, p, p, i, i, i, i, i, i, i, i, p,
-            ]
-            lib.exact_pool_launch.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    """The built csrc/exact_pool.cu library (see utils/cuda_build.py)."""
+    return cuda_build.load("exact_pool", _bind)
 
 
 _count_lock = threading.Lock()
@@ -216,15 +155,23 @@ def exact_pool_plain(q_in, x, aux, *, metric, tile, bins, fold, w):
     """The kernel's function in plain PyTorch (same arguments and outputs).
     Dead bins score -inf; their id is the bin's first row (unspecified by
     the contract, masked downstream)."""
-    qn = q_in.shape[0]
-    n = x.shape[0]
     cross = matmul_nt(q_in, x)  # [Q, N], full f32
     if metric == "COSINE":
         s = cross * aux[0][None, :] + aux[1][None, :]
     else:
         s = cross - aux[0][None, :]
-    # `>`-style max: a NaN score never wins a bin
-    s = torch.where(torch.isnan(s), float("-inf"), s)
+    return bin_argmax(s, tile=tile, bins=bins, fold=fold, w=w)
+
+
+def bin_argmax(s: torch.Tensor, *, tile, bins, fold, w):
+    """The binned pool of a [Q, N] score matrix: bin b of group g holds the
+    max over the rows r with r // (fold*tile) == g and r % bins == b, with
+    the smallest such row as its id -> (f32[Q, W], i32[Q, W]). A NaN score
+    never wins a bin (the kernels' `>` max); a dead bin scores -inf and its
+    id is the bin's first row (unspecified by the contract, masked
+    downstream)."""
+    qn, n = s.shape
+    s = torch.where(torch.isnan(s), float("-inf"), s.float())
     ng, span = w // bins, fold * tile
     s = torch.nn.functional.pad(s, (0, ng * span - n), value=float("-inf"))
     s = s.view(qn, ng, span // bins, bins)
@@ -338,10 +285,15 @@ def exact_pool_scored(
     )
     if stage2_halve:
         outs, outi = _halve_pool(outs, outi, stage2_halve)
-    # stage 2: an exact top-k over the pool at every width. The JAX package
-    # sorts the pool exactly only while W <= 2*ef_buf and takes approx_max_k
-    # above that; exact is never worse, so the two branches are one here.
-    # A pool narrower than ef_buf pads with empty slots.
+    return pool_topk(outs, outi, ef_buf)
+
+
+def pool_topk(outs: torch.Tensor, outi: torch.Tensor, ef_buf: int):
+    """Stage 2: the pool's top ef_buf -> (scores f32[Q, ef_buf], row ids
+    i32[Q, ef_buf]), -inf / -1 in empty slots. An exact top-k at every
+    width: the JAX package sorts a pool exactly only while W <= 2*ef_buf and
+    takes approx_max_k above that; exact is never worse, so the two branches
+    are one here. A pool narrower than ef_buf pads with empty slots."""
     top, pos = torch.topk(outs, min(ef_buf, outs.shape[1]), dim=1)
     if pos.shape[1] < ef_buf:
         pad = ef_buf - pos.shape[1]
