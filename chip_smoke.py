@@ -9,15 +9,17 @@ result):
 
 1. environment: the card's name and power limit, the CUDA and nvcc versions;
 2. build: compiles the hand-written kernels (vectorsearch_torch/csrc/*.cu,
-   one nvcc per source, all started together) for sm_90a from the checkout
-   and prints each kernel's registers and spills;
+   one nvcc per source, all started together) for sm_90a from the checkout,
+   prints each kernel's registers and spills, and counts the warpgroup MMA
+   (HGMMA) instructions in B1's SASS (cuobjdump): none fails;
 3. kernel vs plain on the card:
    - the exact-pool kernel (B1) at every shape a sift1m exact batch gives it
      (Q 512, D 128, L2: the 8-segment group, N 800,768, fold 8; the
      2-segment group, N 200,192, fold 2; the ACTIVE brute table, N 100,096
-     with its first 20,000 rows valid, fold 1), a cosine case with a
-     zero-norm row, and a tail case (N not a multiple of the tile, invalid
-     rows, dead bins);
+     with its first 20,000 rows valid, fold 1) and a Deep10M batch gives it
+     (its ACTIVE brute table: N 1,000,064, D 128 from 96 unit features,
+     fold 8), a cosine case with a zero-norm row, and a tail case (N not a
+     multiple of the tile, invalid rows, dead bins);
    - the packed exact-pool kernel (B2) at the Deep10M subgroups' shapes
      (Q 512, D 128 from 96 unit features, L2, ~2% invalid rows: the
      2-segment group, N 2,000,128, and the 8-segment group, N 8,000,512,
@@ -62,7 +64,10 @@ result):
 5. timings at the sift1m shapes (B2: the Deep10M subgroups' shapes, its
    plain version over 64 queries): each kernel, its plain version, one
    PyTorch call computing the same function where there is one (the library
-   yardstick; the port never calls it) and the card's bound.
+   yardstick; the port never calls it) and the card's bound; for B1 also its
+   useful TFLOP/s, the ceiling of its 3xTF32 form at the TF32 peak, and its
+   times at the 2-segment group, the Deep10M brute table and 3,072-feature
+   rows (its streamed form, beside torch.matmul).
 
 Every kernel's launch count is set to 0 just before each main-path run and
 read just after. The line before the last names the card and its power
@@ -84,16 +89,16 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# Published peaks (NVIDIA data sheets, dense): bytes/s of device memory and
-# bf16 tensor-core and FP32 CUDA-core FLOP/s.
+# Published peaks (NVIDIA data sheets, dense): bytes/s of device memory,
+# bf16 and TF32 tensor-core and FP32 CUDA-core FLOP/s.
 _PEAKS = {
-    "sxm": dict(bytes_s=3.35e12, bf16=989e12, fp32=67e12),
-    "pcie": dict(bytes_s=2.0e12, bf16=756e12, fp32=51e12),
+    "sxm": dict(bytes_s=3.35e12, bf16=989e12, tf32=495e12, fp32=67e12),
+    "pcie": dict(bytes_s=2.0e12, bf16=756e12, tf32=378e12, fp32=51e12),
 }
 
 # (name, C source, replaced TPU kernel) of every kernel the port has
 _KERNELS = [
-    ("exact_pool", "exact_pool", "vectorsearch_tpu/ops/pallas/exact.py:107"),
+    ("exact_pool", "exact_pool_tc", "vectorsearch_tpu/ops/pallas/exact.py:107"),
     ("exact_pool_packed", "exact_pool", "vectorsearch_tpu/ops/pallas/exact.py:203"),
     ("adc_pool", "adc", "vectorsearch_tpu/ops/pallas/adc.py:274"),
     ("adc_scores", "adc", "vectorsearch_tpu/ops/pallas/adc.py:79"),
@@ -175,6 +180,29 @@ def _build_all():
 
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         return dict(pool.map(one, sources))
+
+
+def _warpgroup_mmas(lib_path, kernel):
+    """{function: HGMMA instruction count} of every function of a built
+    library whose name holds `kernel`, read from its SASS (cuobjdump,
+    beside nvcc)."""
+    from vectorsearch_torch.utils import cuda_build
+
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {out.stderr.strip()}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            fn = name if kernel in name else None
+            if fn:
+                counts[fn] = 0
+        elif fn is not None:
+            counts[fn] += "HGMMA" in line.split("*/", 1)[-1]
+    return counts
 
 
 # ------------------------------------------------------- phase 3: exact
@@ -1262,9 +1290,16 @@ def main() -> int:
         for line in compiler_out.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 _log("  ptxas: " + line.strip())
-    exact_ops._load_kernel()
+    cuda_build.load("exact_pool_tc", exact_ops._bind_tc)
+    cuda_build.load("exact_pool", exact_ops._bind_packed)
     adc_ops._load_kernel()
-    _log(f"build {tag}: both libraries in {time.time() - t0:.1f} s")
+    _log(f"build {tag}: every library in {time.time() - t0:.1f} s")
+    # B1 runs on the tensor cores: warpgroup MMA in each of its instantiations
+    mmas = _warpgroup_mmas(built["exact_pool_tc"][0], "exact_pool_tc_kernel")
+    for fn, n in sorted(mmas.items()):
+        _log(f"sass {tag}: {fn}: {n} HGMMA")
+    if not mmas or min(mmas.values()) == 0:
+        raise AssertionError("exact_pool_tc_kernel has no HGMMA instruction")
 
     # 3. kernel vs plain version on the card (launches here are comparisons;
     # the counts are set to 0 before each run of phase 4)
@@ -1277,13 +1312,15 @@ def main() -> int:
               zero_row=True, alive_frac=0.9),
         _case("tail tile, dead bins (L2)", 50_123, "L2", seed=3,
               alive_frac=0.02),
+        _deep_case("Deep10M ACTIVE brute table, 1,000,064 rows (L2)", 1,
+                   seed=23),
     ]
     max_err = {name_: 0.0 for name_, _s, _r in _KERNELS}
     for case in cases:
         err, report = _check_pool(case, exact_ops, traversal_ops)
         max_err["exact_pool"] = max(max_err["exact_pool"], err)
         _log(f"kernel vs plain {tag}: {report}")
-    sift_case, two_case = cases[0], cases[1]
+    sift_case, two_case, deep_brute = cases[0], cases[1], cases[5]
     del cases
     # the packed kernel (B2): the Deep10M subgroups' shapes, then cosine, a
     # tail and an explicit geometry; each case made and freed in turn
@@ -1455,28 +1492,52 @@ def main() -> int:
         two_case["q"], x2, two_case["valid"], "L2"
     )
     two_ms = _time_ms(lambda: exact_ops.exact_pool_cuda(q2_in, x2, aux2, **geom2), 10)
+    # and the Deep10M batch's: its ACTIVE brute table
+    q3_in, aux3, geom3 = exact_ops.pool_inputs(
+        deep_brute["q"], deep_brute["x"], deep_brute["valid"], "L2"
+    )
+    deep_ms = _time_ms(lambda: exact_ops.exact_pool_cuda(
+        q3_in, deep_brute["x"], aux3, **geom3), 10)
+    # rows of a published 3,072-feature embedding width: the kernel's
+    # streamed form (the query tile does not fit in shared memory); off the
+    # main path, timed beside torch.matmul of the same product
+    gw = torch.Generator(device="cuda").manual_seed(31)
+    xw = torch.randn((100_096, 3072), generator=gw, device="cuda")
+    qw = torch.randn((512, 3072), generator=gw, device="cuda")
+    qw_in, auxw, geomw = exact_ops.pool_inputs(
+        qw, xw, torch.ones(xw.shape[0], dtype=torch.bool, device="cuda"), "L2"
+    )
+    wide_ms = _time_ms(lambda: exact_ops.exact_pool_cuda(qw_in, xw, auxw, **geomw), 10)
+    wide_lib_ms = _time_ms(lambda: torch.matmul(qw_in, xw.T), 10)
+    del xw, qw, qw_in, auxw
     qn, n, d, w = qc.shape[0], xc.shape[0], xc.shape[1], geom["w"]
     bytes_moved = n * d * 4 + n * 4 + qn * d * 4 + qn * w * 8
     flops = 2 * qn * n * d
     bytes_ms = bytes_moved / peaks["bytes_s"] * 1e3
     # the least time for this work at the precision it needs: three
-    # split-bf16 tensor-core passes (plain TF32 is not precise enough)
+    # split-bf16 tensor-core passes (plain TF32 is not precise enough); the
+    # kernel's own form, three TF32 passes, has a ceiling twice as high
     ops_ms = 3 * flops / peaks["bf16"] * 1e3
+    tf32_ms = 3 * flops / peaks["tf32"] * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     _log(f"timing exact_pool {tag}: kernel {kernel_ms:.3f} ms, plain "
          f"{plain_ms:.3f} ms, torch.matmul of the same product "
          f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms (operations: 3 "
          f"split-bf16 passes of {flops / 1e9:.1f} GFLOP; bytes "
-         f"{bytes_ms:.3f} ms; FP32 CUDA cores "
-         f"{flops / peaks['fp32'] * 1e3:.3f} ms); kernel "
-         f"{flops / kernel_ms / 1e9:.1f} TFLOP/s FP32; kernel at the 2-segment "
-         f"group (N 200,192, fold {geom2['fold']}) {two_ms:.3f} ms")
-    del sift_case, two_case
+         f"{bytes_ms:.3f} ms), 3xTF32 ceiling {tf32_ms:.3f} ms at "
+         f"{peaks['tf32'] / 1e12:.0f} TFLOP/s; kernel {flops / kernel_ms / 1e9:.1f} "
+         f"useful TFLOP/s ({3 * flops / kernel_ms / 1e9:.1f} on the tensor "
+         f"cores); kernel at the 2-segment group (N 200,192, fold "
+         f"{geom2['fold']}) {two_ms:.3f} ms; at the Deep10M brute table "
+         f"(N {deep_brute['x'].shape[0]:,}, fold {geom3['fold']}) {deep_ms:.3f} ms; "
+         f"at Q 512 x N 100,096 x D 3,072 (streamed query tile) {wide_ms:.3f} ms, "
+         f"torch.matmul {wide_lib_ms:.3f} ms")
+    del sift_case, two_case, deep_brute
     torch.cuda.empty_cache()
     timings = {"exact_pool": dict(
         ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-        library_ms=library_ms,
+        library_ms=library_ms, ms_2seg=two_ms, ms_deep10m_brute=deep_ms,
     )}
     timings["exact_pool_packed"] = _packed_timings(exact_ops, peaks, tag)
     timings.update(_adc_timings(adc_sift, adc_ops, peaks))

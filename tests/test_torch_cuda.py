@@ -8,8 +8,10 @@ need and such a machine may not have):
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
 Tolerance: pool scores within 1e-5 * (2 ||q|| max||x|| + max||x||^2) per
-query (||q|| for cosine); the kernel and the plain version are both full
-f32 and differ only in summation order. ADC kernels: bit-identical to their
+query (||q|| for cosine); the plain version is full f32 and the two-plane
+kernel forms its product from three TF32 tensor-core passes (3xTF32, a
+relative error of ~2^-21, FP32's class; tests/test_torch_exact_pool.py
+holds the argument on the CPU). ADC kernels: bit-identical to their
 plain versions (the same f32 additions in the same order). Packed pool:
 quantized levels within 1 step (the two differ only in summation order),
 dead bins in the same places, and the same slot in all but a few bins (a
@@ -40,17 +42,36 @@ def cuda():
 
 
 @pytest.mark.parametrize("metric", ["L2", "COSINE"])
-@pytest.mark.parametrize("n,tile,fold", [
-    (3 * 512 + 123, 512, 1), (3 * 512 + 123, 512, 2), (50_123, None, None),
+@pytest.mark.parametrize("n,tile,fold,d,qn,scale", [
+    (3 * 512 + 123, 512, 1, 128, 100, 1.0),
+    (3 * 512 + 123, 512, 2, 128, 100, 1.0),
+    (50_123, None, None, 128, 100, 1.0),
+    # a feature count that leaves the last 32-feature chunk part empty
+    (50_123, None, None, 96, 100, 1.0),
+    (50_123, None, None, 100, 100, 1.0),
+    # partial query tiles (the kernel's tile is up to 128 queries)
+    (50_123, None, None, 128, 1, 1.0),
+    (50_123, None, None, 128, 513, 1.0),
+    # large magnitudes through the big/small TF32 split
+    (50_123, None, None, 128, 100, 1e3),
+    # Q x W of a single block: one query tile, one column block (W 128)
+    (3 * 512 + 123, 512, 4, 128, 100, 1.0),
+    # wide rows: the widest whose query planes stay resident at 8 queries a
+    # tile, one feature more (streamed, 4-byte copies), and a published
+    # embedding width (streamed, 64 queries a tile)
+    (20_123, None, None, 2464, 3, 1.0),
+    (20_123, None, None, 2465, 3, 1.0),
+    (20_123, None, None, 3072, 100, 1.0),
 ])
-def test_kernel_matches_plain(cuda, rng, metric, n, tile, fold):
-    d, qn = 128, 100  # qn not a multiple of the kernel's 64-query tile
-    x = rng.normal(size=(n, d)).astype(np.float32)
+def test_kernel_matches_plain(cuda, rng, metric, n, tile, fold, d, qn, scale):
+    x = rng.normal(size=(n, d)).astype(np.float32) * np.float32(scale)
     x[7] = 0.0
-    q = rng.normal(size=(qn, d)).astype(np.float32)
+    q = rng.normal(size=(qn, d)).astype(np.float32) * np.float32(scale)
     valid = rng.random(n) > 0.1
     args = [torch.from_numpy(a).to(cuda) for a in (q, x, valid)]
     q_in, aux, geom = te.pool_inputs(*args, metric=metric, tile_n=tile, fold=fold)
+    if tile == 512 and fold == 4:
+        assert geom["w"] == 128
     before = te.exact_pool_cuda.launches
     ks, ki = te.exact_pool_cuda(q_in, args[1], aux, **geom)
     assert te.exact_pool_cuda.launches == before + 1
@@ -59,11 +80,11 @@ def test_kernel_matches_plain(cuda, rng, metric, n, tile, fold):
     ks, ki, ps, pi = (t.cpu().numpy() for t in (ks, ki, ps, pi))
     qnorm = np.linalg.norm(q, axis=1)
     mx = np.linalg.norm(x, axis=1).max()
-    scale = qnorm if metric == "COSINE" else 2 * qnorm * mx + mx * mx
+    bound = qnorm if metric == "COSINE" else 2 * qnorm * mx + mx * mx
     live = np.isfinite(ps)
     np.testing.assert_array_equal(np.isfinite(ks), live)
     assert (np.abs(ks[live] - ps[live]) <= np.broadcast_to(
-        1e-5 * scale[:, None], ks.shape)[live]).all()
+        1e-5 * bound[:, None], ks.shape)[live]).all()
     assert valid[ki[live]].all()
     # ids agree where the winning score is not tied within the tolerance
     agree = np.mean(ki[live] == pi[live])
@@ -96,6 +117,16 @@ def test_packed_kernel_matches_plain(cuda, rng, metric, n, tile, fold):
     assert np.abs(kl - pl).max() <= 1
     assert np.mean((kp[live] - kl * f) == (pp[live] - pl * f)) > 0.99
     assert (kp[live] == np.round(kp[live])).all()
+
+
+def test_kernel_rejects_too_many_row_slices(cuda, rng):
+    x = torch.from_numpy(rng.normal(size=(2000, 16)).astype(np.float32)).to(cuda)
+    valid = torch.ones(2000, dtype=torch.bool, device=cuda)
+    q_in, aux, geom = te.pool_inputs(x[:4], x, valid, tile_n=512)
+    before = te.exact_pool_cuda.launches
+    with pytest.raises(ValueError, match="row slices per pool group"):
+        te.exact_pool_cuda(q_in, x, aux, **dict(geom, fold=2**15, w=geom["bins"]))
+    assert te.exact_pool_cuda.launches == before
 
 
 def test_packed_wrapper_rejects_bad_arguments(cuda, rng):

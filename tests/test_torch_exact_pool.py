@@ -298,3 +298,77 @@ def test_packed_pool_not_ported_raises(rng):
         te.exact_pool_packed_cuda(q_in, args[1], aux, mult, qn2, **geom)
     _s, ids = te.exact_pool_scored(*args, ef_buf=8, packed=True)
     assert ids[:, 0].tolist() == [0, 1]
+
+
+# ------------------------------------ the card kernel's 3xTF32 precision
+
+
+def _tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on the f32 bits (finite inputs): round to the
+    nearest value with 10 mantissa bits, ties away from zero, by adding half
+    of the 13 dropped bits to the magnitude and clearing them."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_tf32(t: torch.Tensor):
+    big = _tf32_rna(t)
+    return big, _tf32_rna(t - big)  # t - big is exact in f32
+
+
+def _three_tf32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [Q, D] . b [N, D]^T as csrc/exact_pool_tc.cu forms it on the tensor
+    cores: small_a.big_b + big_a.small_b + big_a.big_b, each product of two
+    TF32 values exact in f32, the sums in f32 (in another order than the
+    card's)."""
+    ab, as_ = _split_tf32(a)
+    bb, bs = _split_tf32(b)
+    return as_ @ bb.T + ab @ bs.T + ab @ bb.T
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    v = torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 2**-12, 1 + 2**-10,
+                      3.0e-20, -7.25e5])
+    got = _tf32_rna(v)
+    want = torch.tensor([1 + 2**-10, -(1 + 2**-10), 1.0, 1 + 2**-10,
+                         3.0e-20, -7.25e5])
+    # 1 + 2^-11 is a tie: away from zero (round-to-even would give 1.0)
+    assert got[:4].tolist() == want[:4].tolist()
+    assert ((got.view(torch.int32) & 0x1FFF) == 0).all()
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=10_000).astype(np.float32))
+    big, small = _split_tf32(x)
+    assert (x.double() - big.double() == (x - big).double()).all()
+    # within half a TF32 step (2^-11 relative) and its split within 2^-22
+    assert ((x - big).abs() <= 2.0**-11 * x.abs()).all()
+    assert ((x.double() - big.double() - small.double()).abs()
+            <= 2.0**-22 * x.abs().double()).all()
+
+
+@pytest.mark.parametrize("metric", ["L2", "COSINE"])
+@pytest.mark.parametrize("scale", [1.0, 1e3])
+def test_three_tf32_scores_within_pool_tolerance(rng, metric, scale):
+    """The precision argument of the card's B1 kernel: at a sift1m-like
+    shape (clustered rows, D 128) and at large magnitudes, 3xTF32 rank
+    scores stay within a tenth of the card check's tolerance
+    1e-5 * (2 ||q|| max||x|| + max||x||^2) (||q|| for cosine) of a float64
+    product, while one TF32 pass does not hold that tolerance."""
+    x, q = _clustered(rng, 4096, 128, 64)
+    x, q = x * np.float32(scale), q * np.float32(scale)
+    tx, tq = torch.from_numpy(x), torch.from_numpy(q)
+    valid = torch.ones(4096, dtype=torch.bool)
+    q_in, aux, _geom = te.pool_inputs(tq, tx, valid, metric)
+
+    def scores(cross):
+        if metric == "COSINE":
+            return cross * aux[0].double() + aux[1].double()
+        return cross - aux[0].double()
+
+    want = scores(q_in.double() @ tx.double().T)
+    qn = np.linalg.norm(q.astype(np.float64), axis=1)
+    mx = np.linalg.norm(x.astype(np.float64), axis=1).max()
+    tol = torch.from_numpy(qn if metric == "COSINE" else 2 * qn * mx + mx * mx)
+    tol = 1e-5 * tol[:, None]
+    err3 = (scores(_three_tf32_product(q_in, tx).double()) - want).abs()
+    assert (err3 <= tol / 10).all(), float((err3 / tol).max())
+    err1 = (scores((_tf32_rna(q_in) @ _tf32_rna(tx).T).double()) - want).abs()
+    assert (err1 > tol).any()

@@ -1,53 +1,42 @@
-// Exact binned pools: the Hopper counterparts of the two TPU kernels of
-// vectorsearch_tpu/ops/pallas/exact.py, _pool_kernel (reached through
-// exact_bin_pool; exact_pool_kernel below) and _packed_pool_kernel (reached
-// through exact_bin_pool_packed; exact_pool_packed_kernel below).
+// Exact packed pool B2: the Hopper counterpart of the TPU kernel
+// vectorsearch_tpu/ops/pallas/exact.py::_packed_pool_kernel (reached through
+// exact_bin_pool_packed), launched through exact_pool_packed_launch below.
+// Its two-plane sibling B1 (_pool_kernel) is csrc/exact_pool_tc.cu.
 //
-// Function of the two-plane pool (the same as the TPU kernel's, so the two
-// pools compare directly): for each query q and each pool column (group g,
-// bin b), the max over the rows r < N with r / (fold*tile) == g and
-// r % bins == b of the rank score
-//     L2:     s = (2q).x - aux0[r]           (aux0 = ||x||^2, +inf if invalid;
-//                                              the wrapper pre-doubles q)
-//     COSINE: s = (q.x) * aux0[r] + aux1[r]  (aux0 = 1/||x|| or 0 for a zero
-//                                              row, aux1 = 0 or -inf if invalid)
-// and the smallest r that attains it. A bin with no valid row scores -inf
-// (its id is -1 here; callers mask it). Rows past N are never read. The max
-// compares with `>`, so a NaN score never wins (as in the TPU kernel).
-//
-// Function of the packed pool: the same scan, but per TILE t = g*fold + j of
-// the group the raw (max m, smallest slice a) of each bin is compressed once
-// into one exact-integer f32
+// Function: B1's scan (for each query and pool column (group g, bin b), the
+// max over the rows r < N with r / (fold*tile) == g and r % bins == b of the
+// rank score, L2 (2q).x - aux0[r] or cosine (q.x) * aux0[r] + aux1[r]), but
+// per TILE t = g*fold + j of the group the raw (max m, smallest slice a) of
+// each bin is compressed once into one exact-integer f32
 //     p = rint(v * mult[q]) * F + (j * tile/bins + a),  F = fold * tile/bins
 // with v = -sqrt(max(qn2[q] - m, 0)) for L2 (minus the distance; the sqrt
 // compression carries recall) and v = m for cosine, and the column holds the
 // max of p over the group's tiles. mult = SQ/scale with SQ = 2^23/F keeps
 // |p| < 2^24. Tiles are quantized one by one (two tiles on one step resolve
 // toward the higher slot), rint rounds half to even, a dead bin reads -inf.
-// The build uses no fast-math: the epilogue needs IEEE sqrtf and rintf.
+// Rows past N are never read; a NaN score never wins. The build uses no
+// fast-math: the epilogue needs IEEE sqrtf and rintf.
 //
-// What bounds them on an H100: each pool is a [Q, N] x [N, D] product folded
-// into a per-bin reduction, so the [Q, N] score matrix never reaches device
-// memory. At the Deep10M 8-segment shape (Q 512, N 8,000,512, D 128) that is
-// 1.05 TFLOP against 4.1 GB of x: operations bound it (the bytes take
-// ~1.3 ms at 3.35 TB/s; the FLOPs ~16 ms on the FP32 CUDA cores at
-// 67 TFLOP/s, ~3.2 ms as three split-bf16 tensor-core passes at 989 TFLOP/s).
+// What bounds it on an H100: a [Q, N] x [N, D] product folded into a per-bin
+// reduction, so the [Q, N] score matrix never reaches device memory. At the
+// Deep10M 8-segment shape (Q 512, N 8,000,512, D 128) that is 1.05 TFLOP
+// against 4.1 GB of x: operations bound it (the bytes take ~1.3 ms at
+// 3.35 TB/s; the FLOPs ~16 ms on the FP32 CUDA cores at 67 TFLOP/s, ~3.2 ms
+// as three split-bf16 tensor-core passes at 989 TFLOP/s).
 //
-// Design (first port, simple and right): FP32 FMA on the CUDA cores, which
-// is more precise than the TPU kernels' split-bf16 passes (~2^-16 relative)
-// that exact_finalize needs, since the scores become true distances with no
-// re-rank behind them. Plain TF32 would not be enough. The grid is
-// (query tile of 64, 128 pool columns of one group); each block walks the
-// group's fold*tile/bins row slices in ascending order, stages a 64-query x
-// 32-feature tile and a 128-row x 32-feature tile in shared memory per step,
-// and keeps the running (max, row) of its 64 x 128 (query, bin) pairs in
-// registers (8 queries x 4 bins per thread). The packed kernel keeps the
-// tile's raw (max, slice) the same way and, at each tile's end, compresses
-// and merges it into a third register plane of running packed maxima; the
-// per-query mult and ||q||^2 sit in registers. The 64 query tiles of one
-// group run side by side, so x is read from device memory about once and
-// from L2 after that. wgmma/TMA and the split-bf16 tensor-core form are
-// later work, as is skipping the zero pad columns (D 96 -> 128 at Deep10M).
+// Design (first port, simple and right): FP32 FMA on the CUDA cores, as
+// precise as exact_finalize needs (the scores become true distances with no
+// re-rank behind them). The grid is (query tile of 64, 128 pool columns of
+// one group); each block walks the group's tiles and their row slices in
+// ascending order, stages a 64-query x 32-feature tile and a 128-row x
+// 32-feature tile in shared memory per step, keeps each tile's raw (max,
+// slice) of its 64 x 128 (query, bin) pairs in registers (8 queries x 4 bins
+// per thread) and, at each tile's end, compresses and merges it into a
+// third register plane of running packed maxima; the per-query mult and
+// ||q||^2 sit in registers. The 64 query tiles of one group run side by
+// side, so x is read from device memory about once and from L2 after that.
+// B1's tensor-core mainloop (exact_pool_tc.cu) is the next step for it, as
+// is skipping the zero pad columns (D 96 -> 128 at Deep10M).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -107,75 +96,6 @@ __device__ __forceinline__ void slice_product(
         for (int j = 0; j < TR; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(THREADS) exact_pool_kernel(
-    const float* __restrict__ q,     // [Q, D]
-    const float* __restrict__ x,     // [N, D]
-    const float* __restrict__ aux0,  // [N]
-    const float* __restrict__ aux1,  // [N] (COSINE only)
-    float* __restrict__ out_s,       // [Q, W]
-    int* __restrict__ out_i,         // [Q, W]
-    int Q, int N, int D, int tile, int bins, int fold, int W, int cosine) {
-  __shared__ __align__(16) Stage st;
-
-  const int tid = threadIdx.x;
-  const int tr = tid % (BR / TR);   // bin quad: columns tr*4 .. tr*4+3
-  const int tq = tid / (BR / TR);   // query octet: rows tq*8 .. tq*8+7
-  const int q0 = blockIdx.x * BQ;
-  const int col_blocks = bins / BR;
-  const int g = blockIdx.y / col_blocks;
-  const int b0 = (blockIdx.y % col_blocks) * BR;
-  const long long group_row0 = (long long)g * fold * tile;
-  const int slices = fold * tile / bins;
-
-  float best[TQ][TR];
-  int best_row[TQ][TR];
-#pragma unroll
-  for (int i = 0; i < TQ; ++i)
-#pragma unroll
-    for (int j = 0; j < TR; ++j) {
-      best[i][j] = -CUDART_INF_F;
-      best_row[i][j] = -1;
-    }
-
-  for (int sl = 0; sl < slices; ++sl) {
-    const long long base = group_row0 + (long long)sl * bins + b0;
-    if (base >= N) break;  // later slices lie further past N
-
-    float acc[TQ][TR];
-    slice_product(q, x, Q, N, D, q0, base, tid, tq, tr, st, acc);
-
-    // epilogue: column terms, then the running (max, smallest row) per bin;
-    // slices run in ascending row order, so `>` keeps the smallest row
-#pragma unroll
-    for (int j = 0; j < TR; ++j) {
-      const long long r = base + tr * TR + j;
-      if (r >= N) continue;
-      const float c0 = aux0[r];
-      const float c1 = cosine ? aux1[r] : 0.f;
-#pragma unroll
-      for (int i = 0; i < TQ; ++i) {
-        const float s = cosine ? acc[i][j] * c0 + c1 : acc[i][j] - c0;
-        if (s > best[i][j]) {
-          best[i][j] = s;
-          best_row[i][j] = (int)r;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TQ; ++i) {
-    const int qi = q0 + tq * TQ + i;
-    if (qi >= Q) continue;
-#pragma unroll
-    for (int j = 0; j < TR; ++j) {
-      const long long o = (long long)qi * W + (long long)g * bins + b0 + tr * TR + j;
-      out_s[o] = best[i][j];
-      out_i[o] = best_row[i][j];
-    }
   }
 }
 
@@ -281,21 +201,9 @@ __global__ void __launch_bounds__(THREADS) exact_pool_packed_kernel(
 
 }  // namespace
 
-// Launch on the caller's stream; each returns cudaGetLastError() (0 =
-// launched). Shapes are checked by the Python wrappers
+// Launches on the caller's stream; returns cudaGetLastError() (0 =
+// launched). Shapes are checked by the Python wrapper
 // (vectorsearch_torch/ops/exact.py).
-extern "C" int exact_pool_launch(const float* q, const float* x,
-                                 const float* aux0, const float* aux1,
-                                 float* out_s, int* out_i, int Q, int N, int D,
-                                 int tile, int bins, int fold, int W, int cosine,
-                                 void* stream) {
-  if (Q <= 0 || W <= 0) return (int)cudaSuccess;
-  dim3 grid((Q + BQ - 1) / BQ, W / BR);
-  exact_pool_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      q, x, aux0, aux1, out_s, out_i, Q, N, D, tile, bins, fold, W, cosine);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int exact_pool_packed_launch(const float* q, const float* x,
                                         const float* aux0, const float* aux1,
                                         const float* mult, const float* qn2,

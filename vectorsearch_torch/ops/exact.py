@@ -2,13 +2,13 @@
 the pool), so the [Q, N] score matrix never has to be ranked whole.
 
 Mirrors ``vectorsearch_tpu/ops/pallas/exact.py``. Its two TPU kernels become
-hand-written CUDA kernels in ``vectorsearch_torch/csrc/exact_pool.cu``:
-``_pool_kernel`` (two planes, score and row id) is ``exact_pool_cuda``, and
-``_packed_pool_kernel`` (one plane of score|slot values) is
-``exact_pool_packed_cuda``. Each has a plain PyTorch version beside it
-(``exact_pool_plain``, ``exact_pool_packed_plain``) that computes the same
-function and is what a CPU tensor runs. A CUDA tensor launches the kernel or
-raises: there is no fallback.
+hand-written CUDA kernels: ``_pool_kernel`` (two planes, score and row id) is
+``exact_pool_cuda`` (``vectorsearch_torch/csrc/exact_pool_tc.cu``, on the
+tensor cores), and ``_packed_pool_kernel`` (one plane of score|slot values)
+is ``exact_pool_packed_cuda`` (``csrc/exact_pool.cu``). Each has a plain
+PyTorch version beside it (``exact_pool_plain``, ``exact_pool_packed_plain``)
+that computes the same function and is what a CPU tensor runs. A CUDA tensor
+launches the kernel or raises: there is no fallback.
 
 The pool function is the TPU kernel's, so the two pools compare directly:
 the geometry (tile, bins, fold, pool width W) comes from ``_stage1_params``,
@@ -109,22 +109,22 @@ def _packed_steps(tile: int, bins: int, fold: int) -> tuple[float, float]:
 # ------------------------------------------------------------- the kernel
 
 
-def _bind(lib) -> None:
+def _bind_tc(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.exact_pool_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.exact_pool_launch.restype = ctypes.c_int
+
+
+def _bind_packed(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
     lib.exact_pool_packed_launch.argtypes = [
         p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p,
     ]
     lib.exact_pool_packed_launch.restype = ctypes.c_int
 
 
-def _load_kernel():
-    """The built csrc/exact_pool.cu library (see utils/cuda_build.py)."""
-    return cuda_build.load("exact_pool", _bind)
-
-
 _count_lock = threading.Lock()
+_MAX_SLICES = 65_534  # csrc/exact_pool_tc.cu: 16-bit slice ids, one kept free
 
 
 def _check_kernel_args(who, q_in, x, aux, metric, tile, bins, fold, w,
@@ -168,7 +168,12 @@ def exact_pool_cuda(q_in, x, aux, *, metric, tile, bins, fold, w):
     dev = x.device
     _check_kernel_args("exact_pool_cuda", q_in, x, aux, metric, tile, bins,
                        fold, w)
-    lib = _load_kernel()
+    if fold * (tile // bins) > _MAX_SLICES:
+        raise ValueError(
+            f"exact_pool_cuda: fold={fold} x tile/bins={tile // bins} row "
+            f"slices per pool group, at most {_MAX_SLICES:,}"
+        )
+    lib = cuda_build.load("exact_pool_tc", _bind_tc)
     outs = torch.empty((qn, w), dtype=torch.float32, device=dev)
     outi = torch.empty((qn, w), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -242,7 +247,7 @@ def exact_pool_packed_cuda(q_in, x, aux, mult, qn2, *, metric, tile, bins,
         raise ValueError(
             f"exact_pool_packed_cuda: slot_f={slot_f} is not fold*tile/bins"
         )
-    lib = _load_kernel()
+    lib = cuda_build.load("exact_pool", _bind_packed)
     out = torch.empty((qn, w), dtype=torch.float32, device=dev)
     cosine = metric == "COSINE"
     with torch.cuda.device(dev):
