@@ -11,7 +11,9 @@ result):
 2. build: compiles the hand-written kernels (vectorsearch_torch/csrc/*.cu,
    one nvcc per source, all started together) for sm_90a from the checkout,
    prints each kernel's registers and spills, and counts the warpgroup MMA
-   (HGMMA) instructions in B1's SASS (cuobjdump): none fails;
+   (HGMMA) instructions in the SASS (cuobjdump) of every instantiation of
+   the exact pools' shared kernel, B1's and B2's: none in any of them, or
+   no instantiation of either, fails;
 3. kernel vs plain on the card:
    - the exact-pool kernel (B1) at every shape a sift1m exact batch gives it
      (Q 512, D 128, L2: the 8-segment group, N 800,768, fold 8; the
@@ -22,11 +24,13 @@ result):
      multiple of the tile, invalid rows, dead bins);
    - the packed exact-pool kernel (B2) at the Deep10M subgroups' shapes
      (Q 512, D 128 from 96 unit features, L2, ~2% invalid rows: the
-     2-segment group, N 2,000,128, and the 8-segment group, N 8,000,512,
-     whose plain side runs over 64 queries), a cosine case with a zero-norm
-     row, a tail case with dead bins and fold 1, and an explicit tile 512,
-     fold 2 geometry; the packed planes compare level by level (within one
-     quantization step) and slot by slot, then the decoded top-k;
+     8-segment group, N 8,000,512, whose plain side runs over 64 queries,
+     and the 2-segment group, N 2,000,128, each with the kernel reading only
+     the 96 live features (d_live, as the index calls it), and the 2-segment
+     group over all 128), a cosine case with a zero-norm row, a tail case
+     with dead bins and fold 1 and an explicit tile 512, fold 2 geometry;
+     the packed planes compare level by level (within one quantization
+     step) and slot by slot, then the decoded top-k;
    - the ADC kernels (B3 pool, B4 scores, B5 scan, B5 precise scan) at the
      sift1m segment shape (Q 512, M 16, K 256, N 100,096), a segment under
      16,384 rows (N 10,112), a tail case (N 50,123, ~2% valid rows, dead
@@ -67,7 +71,10 @@ result):
    yardstick; the port never calls it) and the card's bound; for B1 also its
    useful TFLOP/s, the ceiling of its 3xTF32 form at the TF32 peak, and its
    times at the 2-segment group, the Deep10M brute table and 3,072-feature
-   rows (its streamed form, beside torch.matmul).
+   rows (its streamed form, beside torch.matmul); for B2 its useful
+   TFLOP/s, 3xTF32 ceiling and bound both at the padded D 128 and at the
+   96 live features the index asks for, beside torch.matmul of the padded
+   and of the live product.
 
 Every kernel's launch count is set to 0 just before each main-path run and
 read just after. The line before the last names the card and its power
@@ -81,6 +88,7 @@ import concurrent.futures
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -99,7 +107,7 @@ _PEAKS = {
 # (name, C source, replaced TPU kernel) of every kernel the port has
 _KERNELS = [
     ("exact_pool", "exact_pool_tc", "vectorsearch_tpu/ops/pallas/exact.py:107"),
-    ("exact_pool_packed", "exact_pool", "vectorsearch_tpu/ops/pallas/exact.py:203"),
+    ("exact_pool_packed", "exact_pool_tc", "vectorsearch_tpu/ops/pallas/exact.py:203"),
     ("adc_pool", "adc", "vectorsearch_tpu/ops/pallas/adc.py:274"),
     ("adc_scores", "adc", "vectorsearch_tpu/ops/pallas/adc.py:79"),
     ("adc_scan", "adc", "vectorsearch_tpu/ops/pallas/adc.py:68"),
@@ -180,6 +188,18 @@ def _build_all():
 
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         return dict(pool.map(one, sources))
+
+
+_PACKED_FLAG = re.compile(
+    r"exact_pool_tc_kernel(?:<\d+, \w+, (\w+)>|ILi\d+ELb[01]ELb([01])E)")
+
+
+def _packed_flag(name):
+    """B2's PACKED flag, the last template argument of exact_pool_tc_kernel
+    (B1 and B2 are its instantiations), read from a demangled or mangled
+    kernel name; None for a name that is no instantiation of it."""
+    m = _PACKED_FLAG.search(name)
+    return None if m is None else (m.group(1) or m.group(2)) in ("true", "1")
 
 
 def _warpgroup_mmas(lib_path, kernel):
@@ -344,9 +364,10 @@ def _deep_case(name, segs, *, seed, alive_frac=0.98, qn=512):
 
 
 def _check_packed(case, exact_ops, traversal_ops, *, plain_q=None, tile_n=None,
-                  fold=None):
+                  fold=None, d_live=None):
     """The packed kernel vs its plain version on one case (the plain side
-    over the first `plain_q` queries when given). The planes: dead bins in
+    over the first `plain_q` queries when given; `d_live`: the kernel reads
+    only the first features, the rest being zero). The planes: dead bins in
     the same places, quantized levels floor(p/F) within 1 step, and where
     the slots differ the kernel's row must be a near-winner (its own level,
     in the plain arithmetic, within 1 step of the plain winner's: a raw
@@ -358,7 +379,7 @@ def _check_packed(case, exact_ops, traversal_ops, *, plain_q=None, tile_n=None,
 
     q, x, valid, metric = case["q"], case["x"], case["valid"], case["metric"]
     q_in, aux, mult, qn2, step, geom = exact_ops.packed_pool_inputs(
-        q, x, valid, metric, tile_n=tile_n, fold=fold
+        q, x, valid, metric, tile_n=tile_n, fold=fold, d_live=d_live
     )
     kp = exact_ops.exact_pool_packed_cuda(q_in, x, aux, mult, qn2, **geom)
     nq = q.shape[0] if plain_q is None else plain_q
@@ -421,7 +442,8 @@ def _check_packed(case, exact_ops, traversal_ops, *, plain_q=None, tile_n=None,
         raise AssertionError(f"{case['name']}: {mismatch} final top-k ids differ")
     report = (
         f"{case['name']}: Q={q.shape[0]} (plain over {nq}) N={x.shape[0]} "
-        f"W={geom['w']} tile={geom['tile']} fold={geom['fold']} F={int(f)} "
+        f"d_live={geom['d_live']} W={geom['w']} tile={geom['tile']} "
+        f"fold={geom['fold']} F={int(f)} "
         f"max_level_diff={level_diff} slot_differs={int(differ.sum())}/"
         f"{int(live.sum())} bins ({float(differ.sum()) / max(1, int(live.sum())):.2e}) "
         f"max_abs_err={max_err:.3e} final_ids_equal={int((k_i == p_i).sum())}/"
@@ -748,6 +770,13 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _short(key: str) -> str:
+    """A kernel's profiler name, shortened for a log line (B1 and B2 keep
+    their template arguments)."""
+    key = key.replace("(anonymous namespace)::", "")
+    return (key[5:] if key.startswith("void ") else key)[:48]
+
+
 def _on_device(evt) -> bool:
     return "CUDA" in str(getattr(evt, "device_type", ""))
 
@@ -798,7 +827,7 @@ def _profile(label, idx, q, params, tag, launches, tables):
          f"{sum(e.count for e in dev) / 5:.0f} device operations and "
          f"{n_calls / 5:.0f} kernel-launch calls ({call_us:.1f} us each) per "
          f"batch; top: " + "; ".join(
-             f"{e.key[:40]} {_device_us(e) / 5e3:.3f} ms x{e.count / 5:.0f}"
+             f"{_short(e.key)} {_device_us(e) / 5e3:.3f} ms x{e.count / 5:.0f}"
              for e in top))
     tables += [f"== {label}, one client, 5 batches {tag}",
                ka.table(sort_by="self_cpu_time_total", row_limit=25)]
@@ -1001,15 +1030,18 @@ def _deep10m(tvs, exact_ops, tag, launches, tables):
         def share(pred):
             return sum(_device_us(e) for e in dev if pred(e.key)) / 1e6 / wall
 
+        def pool(key, packed):
+            return _packed_flag(key) is packed
+
         top = sorted(dev, key=_device_us, reverse=True)[:8]
         _log(f"deep10m churn profile {tag}: 8 clients and the writer, "
              f"{t_rate:.1f} QPS while traced, card busy {dev_s / wall:.3f}; "
              f"share of wall time: packed pool "
-             f"{share(lambda k: 'exact_pool_packed' in k):.3f}, two-plane pool "
-             f"{share(lambda k: 'exact_pool_kernel' in k):.3f}, copies "
+             f"{share(lambda k: pool(k, True)):.3f}, two-plane pool "
+             f"{share(lambda k: pool(k, False)):.3f}, copies "
              f"(uploads and copy-on-write clones) "
              f"{share(lambda k: 'Memcpy' in k or 'copy' in k.lower()):.3f}; top: "
-             + "; ".join(f"{e.key[:48]} {_device_us(e) / 1e3:.1f} ms "
+             + "; ".join(f"{_short(e.key)} {_device_us(e) / 1e3:.1f} ms "
                          f"x{e.count}" for e in top))
         tables += ["== deep10m exact under churn, 8 clients and the writer",
                    ka.table(sort_by="self_cpu_time_total", row_limit=25)]
@@ -1192,12 +1224,16 @@ def _adc_timings(case, adc_ops, peaks):
 
 
 def _packed_timings(exact_ops, peaks, tag):
-    """B2 at the Deep10M subgroups' shapes: the kernel, its plain version
-    over a 64-query slice (stated; the full [512, N] plain block takes
-    16 GB at the 8-segment group), torch.matmul of the same [512, N] x
-    [N, 128] product and the bound: bytes (x, aux and the per-query terms
-    read once, the f32 pool written once) over the memory rate, or three
-    split-bf16 passes of the product over the bf16 tensor-core rate."""
+    """B2 at the Deep10M subgroups' shapes: the kernel as the index calls it
+    (the 96 live features of the 128-wide rows) and over all 128, its plain
+    version over a 64-query slice (stated; the full [512, N] plain block
+    takes 16 GB at the 8-segment group), torch.matmul of the same product
+    over the live columns ([512, 96] x [96, N]: library_ms) and over all 128
+    (library_padded_ms), and the bound:
+    bytes (x's live columns, aux and the per-query terms read once, the f32
+    pool written once) over the memory rate, or three split-bf16 passes of
+    the live product over the bf16 tensor-core rate; the same at the padded
+    D, and the 3xTF32 ceilings (three TF32 passes at the TF32 peak)."""
     import torch
 
     out = {}
@@ -1205,35 +1241,54 @@ def _packed_timings(exact_ops, peaks, tag):
         case = _deep_case(f"deep {segs}", segs, seed=30 + segs)
         q, x, valid = case["q"], case["x"], case["valid"]
         q_in, aux, mult, qn2, _step, geom = exact_ops.packed_pool_inputs(
-            q, x, valid, "L2")
+            q, x, valid, "L2", d_live=96)
+        iters = 5 if segs == 8 else 10
         ms = _time_ms(lambda: exact_ops.exact_pool_packed_cuda(
-            q_in, x, aux, mult, qn2, **geom), 5 if segs == 8 else 10)
+            q_in, x, aux, mult, qn2, **geom), iters)
+        ms_pad = _time_ms(lambda: exact_ops.exact_pool_packed_cuda(
+            q_in, x, aux, mult, qn2, **dict(geom, d_live=None)), iters)
         s = slice(0, 64)
         plain64 = _time_ms(lambda: exact_ops.exact_pool_packed_plain(
             q_in[s].contiguous(), x, aux, mult[s].contiguous(),
             qn2[s].contiguous(), **geom), 2, 1)
-        lib = _time_ms(lambda: torch.matmul(q_in, x.T), 5, 1)
-        qn, n, d, w = q.shape[0], x.shape[0], x.shape[1], geom["w"]
-        nbytes = n * d * 4 + n * 4 + qn * d * 4 + qn * 8 + qn * w * 4
-        flops = 2 * qn * n * d
-        bytes_ms = nbytes / peaks["bytes_s"] * 1e3
-        ops_ms = 3 * flops / peaks["bf16"] * 1e3
-        _log(f"timing exact_pool_packed {tag}: Q {qn} x N {n:,} x D {d} "
-             f"(fold {geom['fold']}, W {w:,}): kernel {ms:.3f} ms, plain over "
-             f"64 queries {plain64:.3f} ms, torch.matmul of the same product "
-             f"{lib:.3f} ms, bound {max(bytes_ms, ops_ms):.3f} ms (operations "
-             f"{ops_ms:.3f} ms as 3 split-bf16 passes of {flops / 1e12:.3f} "
-             f"TFLOP, bytes {bytes_ms:.3f} ms); kernel "
-             f"{flops / ms / 1e9:.1f} TFLOP/s FP32")
+        lib_pad = _time_ms(lambda: torch.matmul(q_in, x.T), 5, 1)
+        lib = _time_ms(lambda: torch.matmul(q_in[:, :96], x[:, :96].T), 5, 1)
+        qn, n, w = q.shape[0], x.shape[0], geom["w"]
+        line = {}
+        for d in (96, 128):
+            nbytes = n * d * 4 + n * 4 + qn * d * 4 + qn * 8 + qn * w * 4
+            flops = 2 * qn * n * d
+            bytes_ms = nbytes / peaks["bytes_s"] * 1e3
+            ops_ms = 3 * flops / peaks["bf16"] * 1e3
+            line[d] = dict(
+                flops=flops, bound=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
+                ops_ms=ops_ms, tf32_ms=3 * flops / peaks["tf32"] * 1e3,
+                by="operations" if ops_ms >= bytes_ms else "bytes")
+        live, pad = line[96], line[128]
+        _log(f"timing exact_pool_packed {tag}: Q {qn} x N {n:,} x D 128 "
+             f"(fold {geom['fold']}, W {w:,}): kernel over the 96 live "
+             f"features {ms:.3f} ms ({live['flops'] / ms / 1e9:.1f} useful "
+             f"TFLOP/s; 3xTF32 ceiling {live['tf32_ms']:.3f} ms; bound "
+             f"{live['bound']:.3f} ms, operations {live['ops_ms']:.3f} ms as 3 "
+             f"split-bf16 passes of {live['flops'] / 1e12:.3f} TFLOP, bytes "
+             f"{live['bytes_ms']:.3f} ms), over all 128 {ms_pad:.3f} ms "
+             f"({pad['flops'] / ms_pad / 1e9:.1f} useful TFLOP/s; 3xTF32 "
+             f"ceiling {pad['tf32_ms']:.3f} ms; bound {pad['bound']:.3f} ms); "
+             f"plain over 64 queries {plain64:.3f} ms; torch.matmul of the "
+             f"same product over the 96 live columns {lib:.3f} ms, over all "
+             f"128 {lib_pad:.3f} ms")
         key = "" if segs == 8 else "_2seg"
         out.update({
-            f"ms{key}": ms, f"plain_ms{key}": plain64,
-            f"library_ms{key}": lib, f"bound_ms{key}": max(bytes_ms, ops_ms),
+            f"ms{key}": ms, f"ms_padded{key}": ms_pad,
+            f"plain_ms{key}": plain64, f"library_ms{key}": lib,
+            f"library_padded_ms{key}": lib_pad, f"bound_ms{key}": live["bound"],
+            f"bound_padded_ms{key}": pad["bound"],
         })
-        out.setdefault("bound_by", "operations" if ops_ms >= bytes_ms else "bytes")
+        out.setdefault("bound_by", live["by"])
         del case, q, x, valid, q_in, aux
         torch.cuda.empty_cache()
     out["plain_queries"] = 64
+    out["d_live"] = 96
     return out
 
 
@@ -1291,15 +1346,24 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 _log("  ptxas: " + line.strip())
     cuda_build.load("exact_pool_tc", exact_ops._bind_tc)
-    cuda_build.load("exact_pool", exact_ops._bind_packed)
     adc_ops._load_kernel()
     _log(f"build {tag}: every library in {time.time() - t0:.1f} s")
-    # B1 runs on the tensor cores: warpgroup MMA in each of its instantiations
+    # B1 and B2 run on the tensor cores: warpgroup MMA in each instantiation
+    # of their kernel (its last template argument is B2's PACKED flag)
     mmas = _warpgroup_mmas(built["exact_pool_tc"][0], "exact_pool_tc_kernel")
     for fn, n in sorted(mmas.items()):
         _log(f"sass {tag}: {fn}: {n} HGMMA")
-    if not mmas or min(mmas.values()) == 0:
-        raise AssertionError("exact_pool_tc_kernel has no HGMMA instruction")
+    flags = {fn: _packed_flag(fn) for fn in mmas}
+    if None in flags.values():
+        raise AssertionError(
+            f"exact_pool_tc_kernel: no PACKED flag in "
+            f"{[fn for fn, f in flags.items() if f is None]}")
+    for flag, kname in ((False, "B1"), (True, "B2")):
+        mine = [n for fn, n in mmas.items() if flags[fn] is flag]
+        if not mine or min(mine) == 0:
+            raise AssertionError(
+                f"exact_pool_tc_kernel: {kname} has an instantiation without "
+                f"HGMMA instructions, or none: {mmas}")
 
     # 3. kernel vs plain version on the card (launches here are comparisons;
     # the counts are set to 0 before each run of phase 4)
@@ -1322,19 +1386,24 @@ def main() -> int:
         _log(f"kernel vs plain {tag}: {report}")
     sift_case, two_case, deep_brute = cases[0], cases[1], cases[5]
     del cases
-    # the packed kernel (B2): the Deep10M subgroups' shapes, then cosine, a
-    # tail and an explicit geometry; each case made and freed in turn
+    # the packed kernel (B2): the Deep10M subgroups' shapes as the index calls
+    # them (96 live features: 128 queries a tile), the 2-segment group over
+    # all 128 (64 queries a tile), then cosine, a tail and an explicit
+    # geometry; each case made and freed in turn
     max_level_diff = 0
     packed_cases = [
-        (lambda: _deep_case("Deep10M 2-segment group (L2)", 2, seed=21), {}),
-        (lambda: _deep_case("Deep10M 8-segment group (L2)", 8, seed=22),
-         dict(plain_q=64)),
+        (lambda: _deep_case("Deep10M 2-segment group, all 128 features (L2)",
+                            2, seed=21), {}),
+        (lambda: _deep_case("Deep10M 8-segment group, 96 live features (L2)",
+                            8, seed=22), dict(plain_q=64, d_live=96)),
         (lambda: _case("cosine, zero-norm row", 2 * 100_096, "COSINE", seed=2,
                        zero_row=True, alive_frac=0.9), {}),
         (lambda: _case("tail tile, dead bins, fold 1 (L2)", 50_123, "L2",
                        seed=3, alive_frac=0.02), {}),
         (lambda: _case("explicit tile 512, fold 2 (L2)", 100_096, "L2", seed=6,
                        alive_frac=0.98), dict(tile_n=512, fold=2)),
+        (lambda: _deep_case("Deep10M 2-segment group, 96 live features (L2)",
+                            2, seed=24), dict(d_live=96)),
     ]
     for make, kw in packed_cases:
         err, level, report = _check_packed(make(), exact_ops, traversal_ops, **kw)

@@ -12,10 +12,12 @@ query (||q|| for cosine); the plain version is full f32 and the two-plane
 kernel forms its product from three TF32 tensor-core passes (3xTF32, a
 relative error of ~2^-21, FP32's class; tests/test_torch_exact_pool.py
 holds the argument on the CPU). ADC kernels: bit-identical to their
-plain versions (the same f32 additions in the same order). Packed pool:
-quantized levels within 1 step (the two differ only in summation order),
-dead bins in the same places, and the same slot in all but a few bins (a
-raw near-tie inside a tile, or two tiles on one step, may resolve apart).
+plain versions (the same f32 additions in the same order). Packed pool
+(3xTF32 on the tensor cores too, each 32-feature chunk summed apart;
+tests/test_torch_exact_packed.py holds the argument on the CPU):
+quantized levels within 1 step, dead bins in the same places, and the same
+slot in all but a few bins (a raw near-tie inside a tile, or two tiles on
+one step, may resolve apart).
 """
 
 import numpy as np
@@ -92,18 +94,39 @@ def test_kernel_matches_plain(cuda, rng, metric, n, tile, fold, d, qn, scale):
 
 
 @pytest.mark.parametrize("metric", ["L2", "COSINE"])
-@pytest.mark.parametrize("n,tile,fold", [
-    (3 * 512 + 123, 512, 2), (5 * 512 + 77, 512, 4), (50_123, None, None),
+@pytest.mark.parametrize("n,tile,fold,d,d_live,qn", [
+    (3 * 512 + 123, 512, 2, 128, None, 100),
+    (5 * 512 + 77, 512, 4, 128, None, 100),
+    (50_123, None, None, 128, None, 100),
+    # query tiles of 8, 64 and 128 (partial at 40)
+    (50_123, None, None, 128, None, 8),
+    (50_123, None, None, 128, None, 40),
+    (50_123, None, None, 128, None, 512),
+    # fold 1, and fold 8 over three groups (the last one partial)
+    (50_123, None, 1, 128, None, 40),
+    (40_000, None, 8, 128, None, 512),
+    # Deep10M's rows: 96 live features lane-padded to 128, the pad skipped
+    (50_123, None, None, 128, 96, 512),
+    # a live width whose last 16-byte copy is part zero-filled
+    (20_123, None, None, 128, 98, 40),
+    # widths that are no multiple of 32: 16-byte copies, and 4-byte ones
+    (50_123, None, None, 100, None, 100),
+    (20_123, None, None, 99, None, 40),
+    # the streamed query tile (rows too wide for resident planes)
+    (20_123, None, None, 3072, None, 100),
 ])
-def test_packed_kernel_matches_plain(cuda, rng, metric, n, tile, fold):
-    d, qn = 128, 100
+def test_packed_kernel_matches_plain(cuda, rng, metric, n, tile, fold, d,
+                                     d_live, qn):
     x = rng.normal(size=(n, d)).astype(np.float32)
     x[7] = 0.0
     q = rng.normal(size=(qn, d)).astype(np.float32)
+    if d_live is not None:
+        x[:, d_live:] = 0.0
     valid = rng.random(n) > 0.1
     args = [torch.from_numpy(a).to(cuda) for a in (q, x, valid)]
     q_in, aux, mult, qn2, _step, geom = te.packed_pool_inputs(
-        *args, metric=metric, tile_n=tile, fold=fold)
+        *args, metric=metric, tile_n=tile, fold=fold, d_live=d_live)
+    assert geom["d_live"] == (d if d_live is None else d_live)
     before = te.exact_pool_packed_cuda.launches
     kp = te.exact_pool_packed_cuda(q_in, args[1], aux, mult, qn2, **geom)
     assert te.exact_pool_packed_cuda.launches == before + 1
@@ -137,6 +160,11 @@ def test_packed_wrapper_rejects_bad_arguments(cuda, rng):
         dict(q_in=q_in.double()), dict(mult=mult.cpu()), dict(qn2=qn2[:2]),
         dict(geom=dict(geom, w=geom["w"] + geom["bins"])),
         dict(geom=dict(geom, slot_f=geom["slot_f"] * 2)),
+        # the shared tensor-core kernel's limits: live width 1 .. D, and
+        # 16-bit slice ids
+        dict(geom=dict(geom, d_live=0)), dict(geom=dict(geom, d_live=17)),
+        dict(geom=dict(geom, fold=2**15, w=geom["bins"],
+                       slot_f=float(2**15 * (geom["tile"] // geom["bins"])))),
     ):
         a = dict(q_in=q_in, mult=mult, qn2=qn2, geom=geom) | bad
         with pytest.raises(ValueError):
@@ -263,3 +291,45 @@ def test_pq_train_is_reproducible_on_the_card(cuda, rng):
     ]
     assert torch.equal(cbs[0], cbs[1])
     assert torch.equal(tpq.pq_encode(x, cbs[0], valid), tpq.pq_encode(x, cbs[1], valid))
+
+
+def test_global_worker_seals_flat_with_pq_on_the_card(cuda):
+    """A global worker with its default device (the card) seals a flat
+    index with PQ codes of pq_m columns, and the serving index answers
+    those segments through the ADC kernels, not the exact pool."""
+    from vectorsearch_torch.core.tasks import GlobalWorkerRunner, TaskQueue
+
+    storage = tvs.MemoryStorage()
+    bq, mq = TaskQueue("gb"), TaskQueue("gm")
+    producer = tvs.VectorIndex.create_or_open(tvs.VectorIndexConfig(
+        storage=storage, name="g", dimension=8, max_segment_size=300,
+        pq_m=4, pq_k=16, sealed_search_mode="flat",
+        graph_build_mode="skip_for_flat", pq_build_mode="always",
+        global_task_queue_config=tvs.GlobalTaskQueueConfig(
+            build_queue=bq, maintenance_queue=mq),
+    ))
+    try:
+        x = np.random.default_rng(0).normal(size=(650, 8)).astype(np.float32)
+        gids = producer.add_all(x)
+        producer.checkpoint()
+        runner = GlobalWorkerRunner(storage, tvs.WorkerConfig(), bq, mq)
+        try:
+            while runner.run_once_build(timeout=0.2):
+                pass
+            rt = runner._indexes["g"]
+            assert rt.config.device.type == "cuda"
+        finally:
+            runner.close()
+        assert producer.refresh() == [0, 1]
+        for sid in (0, 1):
+            assert producer.store.segments[sid].codes_np.shape[1] == 4
+        adc_before = ta.adc_scores_cuda.launches + ta.adc_pool_cuda.launches
+        pool_before = (te.exact_pool_cuda.launches
+                       + te.exact_pool_packed_cuda.launches)
+        got, _s, _d = producer.query_batch_arrays(x[:4], 5)
+        assert ta.adc_scores_cuda.launches + ta.adc_pool_cuda.launches > adc_before
+        assert (te.exact_pool_cuda.launches
+                + te.exact_pool_packed_cuda.launches) == pool_before
+        assert list(got[:, 0]) == list(gids[:4])
+    finally:
+        producer.close()

@@ -1,5 +1,5 @@
 """The port's packed exact pool (vectorsearch_torch/ops/exact.py: the plain
-version of csrc/exact_pool.cu's packed kernel, its decode and the packed
+version of csrc/exact_pool_tc.cu's packed kernel, its decode and the packed
 route of exact_pool_scored) held against the JAX package's
 ``exact_bin_pool_packed`` / ``decode_packed_pool`` (Pallas in interpret mode
 on the CPU) on the same numpy inputs.
@@ -369,3 +369,174 @@ def test_exact_subgroups_ignore_the_flat_byte_bound(rng, monkeypatch):
             idx.close()
     assert subgroups == [2]
     _assert_same(out[1], out[0], x, q, np.ones(n, bool), "L2", 10)
+
+
+# ------------------------- the card kernel's 3xTF32 precision and d_live
+
+
+def _deep_like(rng, n, qn, scale=1.0):
+    """Deep10M-like rows: unit vectors of 96 features near 512 unit centres
+    (noise 0.18), zero-padded to 128 as the index lane-pads them; queries
+    are rows plus 0.02 noise (bench.py's Deep10M recipe, smaller)."""
+    centers = rng.normal(size=(512, 96))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    x96 = centers[rng.integers(0, 512, n)] + 0.18 * rng.normal(size=(n, 96))
+    x96 /= np.linalg.norm(x96, axis=1, keepdims=True)
+    q96 = x96[rng.integers(0, n, qn)] + 0.02 * rng.normal(size=(qn, 96))
+    x = np.zeros((n, 128), np.float32)
+    q = np.zeros((qn, 128), np.float32)
+    x[:, :96], q[:, :96] = x96 * scale, q96 * scale
+    return x, q, rng.random(n) > 0.02
+
+
+def _round_to_zero(t64: torch.Tensor) -> torch.Tensor:
+    """float64 -> the float32 next to it toward zero."""
+    f = t64.float()
+    over = f.double().abs() > t64.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _tensor_core_product(chunk_sums: bool):
+    """a [Q, D] . b [N, D]^T as csrc/exact_pool_tc.cu forms it: each operand
+    split into big and small TF32 halves, three MMAs per 8 features
+    (small_b.big_a, big_b.small_a, big_b.big_a), each MMA's 8 products
+    summed exactly and added to the f32 accumulator rounding toward zero,
+    as the tensor cores do. ``chunk_sums``: B2's form, a fresh accumulator
+    per 32 features, the chunk's small terms first, the chunks added in
+    f32; else B1's, one accumulator over all features, the three MMAs of
+    each 8 features in turn."""
+    from tests.test_torch_exact_pool import _split_tf32
+
+    def product(a, b):
+        ab, as_ = _split_tf32(a)
+        bb, bs = _split_tf32(b)
+        d = a.shape[1]
+        acc = total = torch.zeros(a.shape[0], b.shape[0])
+        for c in range(0, d, 32):
+            ks = range(c, min(c + 32, d), 8)
+            terms = ((ab, bs), (as_, bb), (ab, bb))
+            if chunk_sums:
+                acc = torch.zeros_like(acc)
+                order = [(k0, t) for t in terms for k0 in ks]
+            else:
+                order = [(k0, t) for k0 in ks for t in terms]
+            for k0, (qa, xb) in order:
+                k = slice(k0, k0 + 8)
+                acc = _round_to_zero(
+                    acc.double() + qa[:, k].double() @ xb[:, k].double().T)
+            if chunk_sums:
+                total = total + acc
+        return total if chunk_sums else acc
+
+    return product
+
+
+def _levels(monkeypatch, product, q, x, valid, metric, **geom_kw):
+    """Packed levels floor(p / F) of the live bins of the plain version
+    with ``product`` in place of its full-f32 one (None: full f32)."""
+    args = (torch.from_numpy(q), torch.from_numpy(x), torch.from_numpy(valid))
+    q_in, aux, mult, qn2, _step, geom = te.packed_pool_inputs(
+        *args, metric, **geom_kw)
+    if product is not None:
+        monkeypatch.setattr(te, "matmul_nt", product)
+    plane = te.exact_pool_packed_plain(q_in, args[1], aux, mult, qn2, **geom)
+    monkeypatch.undo()
+    return plane, geom
+
+
+@pytest.mark.parametrize("metric", ["L2", "COSINE"])
+@pytest.mark.parametrize("scale", [1.0, 1e3])
+def test_tensor_core_packed_levels_within_one_step(rng, monkeypatch, metric, scale):
+    """The precision argument of the card's B2 kernel (3xTF32 MMAs, chunk
+    sums), emulated on the CPU: on Deep10M-like rows (D 96 padded to 128,
+    the pool's Deep10M geometry: tile 2048, fold 8, F 64) and at 1e3x
+    magnitudes, its packed plane holds the same dead bins, levels within
+    one step of the full-f32 plain version and the same slot in all but a
+    few bins, while one TF32 pass moves levels by more than one step."""
+    from tests.test_torch_exact_pool import _tf32_rna
+
+    x, q, valid = _deep_like(rng, 24_000, 48, scale)
+    kw = dict(fold=8, d_live=96)
+    want, geom = _levels(monkeypatch, None, q, x, valid, metric, **kw)
+    assert (geom["tile"], geom["fold"], geom["slot_f"]) == (2048, 8, 64.0)
+    got, _g = _levels(monkeypatch, _tensor_core_product(True), q, x, valid,
+                      metric, **kw)
+    one, _g = _levels(monkeypatch, lambda a, b: _tf32_rna(a) @ _tf32_rna(b).T,
+                      q, x, valid, metric, **kw)
+    live = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), live) and live.float().mean() > 0.9
+    f = geom["slot_f"]
+    lw, lg, lo = (torch.floor(p[live] / f) for p in (want, got, one))
+    assert (lg - lw).abs().max() <= 1
+    assert ((got[live] - lg * f) == (want[live] - lw * f)).float().mean() > 0.99
+    assert (lo - lw).abs().max() > 1
+
+
+def test_chunk_sums_keep_fine_packed_levels(monkeypatch):
+    """Why B2 sums each 32-feature chunk apart, small terms first: at fine
+    levels (tile 512, fold 2: F 8, steps of 2^-20 of the scale) on
+    sift1m-like rows (D 128, norms ~45), accumulating the whole slice
+    inside the MMAs, with its round-toward-zero adds at the running sum's
+    magnitude (B1's form), moves levels by more than one step
+    (chip_smoke.py's explicit-geometry case caught it on the card), while
+    B2's form keeps them within one."""
+    rng = np.random.default_rng(0)
+    n, d, qn = 12_288, 128, 48
+    centers = rng.normal(size=(2048, d)) * 4
+    x = (centers[rng.integers(0, 2048, n)] + rng.normal(size=(n, d))).astype(np.float32)
+    q = (centers[rng.integers(0, 2048, qn)] + rng.normal(size=(qn, d))).astype(np.float32)
+    valid = rng.random(n) < 0.98
+    kw = dict(tile_n=512, fold=2)
+    want, geom = _levels(monkeypatch, None, q, x, valid, "L2", **kw)
+    assert geom["slot_f"] == 8.0
+    live = torch.isfinite(want)
+    lw = torch.floor(want[live] / 8.0)
+    for chunk_sums, most in ((True, 1), (False, None)):
+        got, _g = _levels(monkeypatch, _tensor_core_product(chunk_sums), q, x,
+                          valid, "L2", **kw)
+        diff = (torch.floor(got[live] / 8.0) - lw).abs().max()
+        if chunk_sums:
+            assert diff <= most
+        else:
+            assert diff > 1
+
+
+def test_packed_d_live_gives_the_identical_plane(rng):
+    """d_live = 96 on rows zero-padded to 128 (as the index calls the packed
+    route) gives the identical plane and step: the geometry stays the padded
+    D's, and the skipped columns add exact zeros."""
+    x, q, valid = _deep_like(rng, 20_000, 16)
+    args = (torch.from_numpy(q), torch.from_numpy(x), torch.from_numpy(valid))
+    full, full_step = te.exact_bin_pool_packed(*args, fold=2)
+    live, live_step = te.exact_bin_pool_packed(*args, fold=2, d_live=96)
+    assert torch.equal(full, live) and torch.equal(full_step, live_step)
+    *_rest, geom = te.packed_pool_inputs(*args, fold=2, d_live=96)
+    assert geom["d_live"] == 96
+    assert geom["tile"] == te._stage1_params(16, 128, 20_000, None, 2, 16384)[0]
+    # and the same plane as the JAX package's pool of the padded rows
+    _compare_packed(_bf16(q), _bf16(x), valid, "L2", None, 2)
+
+
+def test_index_passes_its_logical_dimension_to_the_packed_route(rng, monkeypatch):
+    """The index's packed calls get d_live = its logical dimension (16) on
+    rows lane-padded to 128, and still answer exactly."""
+    monkeypatch.setattr(te, "_PACKED_MIN_ROWS", 2 * SEG)
+    seen = []
+    orig = te.exact_pool_packed_plain
+
+    def spy(q_in, x, *a, **kw):
+        seen.append((x.shape[1], q_in.shape[1], kw["d_live"]))
+        return orig(q_in, x, *a, **kw)
+
+    monkeypatch.setattr(te, "exact_pool_packed_plain", spy)
+    n = 2 * SEG + 100
+    x, q = _blocked(rng, n, 16)
+    idx = _open(tvs, tvs.MemoryStorage(), "L2")
+    try:
+        gids = _populate(idx, x, built=(0, 1), deleted=[])
+        got, _s, _d = idx.query_batch_arrays(q, 10)
+    finally:
+        idx.close()
+    assert seen == [(128, 128, 16)]
+    d = np.linalg.norm(x[None, :, :] - q[:, None, :], axis=2)
+    assert (got[:, 0] == np.asarray(gids)[d.argmin(axis=1)]).all()

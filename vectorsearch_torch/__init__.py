@@ -12,8 +12,9 @@ The port serves exact mode (``sealed_search_mode="exact"`` with
 ``pq_build_mode="skip_for_exact"``) and flat mode (``sealed_search_mode=
 "flat"`` with ``graph_build_mode="skip_for_flat"``: PQ trained at seal, ADC
 candidate pools, exact re-rank) end to end: add, seal, query, merge and gid
-mapping. Its kernels are hand-written CUDA: the exact pool scan
-(``csrc/exact_pool.cu``) and the ADC pool and scans (``csrc/adc.cu``).
+mapping. Its kernels are hand-written CUDA: the exact pool scans, two-plane
+and packed (``csrc/exact_pool_tc.cu``, on the tensor cores), and the ADC
+pool and scans (``csrc/adc.cu``).
 Indexes run on ``config.device`` (default ``"cuda"``); the CPU runs only
 when asked for with ``device="cpu"``. ROADMAP.md lists what is still to
 port.

@@ -593,11 +593,18 @@ class VectorIndexConfig:
         storage: Any,
         name: str,
         worker: WorkerConfig,
+        *,
+        device: Any = "cuda",
     ) -> "VectorIndexConfig":
         """Reconstructs a full config from persisted IndexMeta (data params) plus a
         WorkerConfig template (operational params) — used by global workers
         (reference: tasks/GlobalWorkerRunner.java:364-425). Zero-valued optional
         fields fall back to the worker defaults (reference: WorkerConfig.java:282-289).
+
+        The modes are the JAX package's defaults (flat, PQ at seal) less the
+        graph, which the port cannot build yet (ROADMAP.md Queue A13): seals
+        carry PQ codes and no graph. ``device`` is the worker's own; it is
+        not persisted, so the storage format stays the JAX package's.
         """
         return VectorIndexConfig(
             storage=storage,
@@ -618,10 +625,10 @@ class VectorIndexConfig:
             worker_config=worker.replace(
                 local_worker_threads=0, local_maintenance_worker_threads=0
             ),
-            # the only modes this port serves (see _check_ported)
-            sealed_search_mode="exact",
-            graph_build_mode="skip_for_flat",
-            pq_build_mode="skip_for_exact",
+            sealed_search_mode="flat",
+            graph_build_mode="skip_for_flat",  # "always" after Queue A13
+            pq_build_mode="always",
+            device=device,
         )
 
     def replace(self, **kw) -> "VectorIndexConfig":

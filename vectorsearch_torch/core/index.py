@@ -129,12 +129,15 @@ def _sealed_exact_pool_scored(q, vectors, valid, xn2, *, ef_buf, metric):
     CUDA kernel on the card: the packed one from 2,000,000 rows, since
     ``packed=None`` resolves by row count); smaller ones through one
     full-f32 score matrix and an exact top-k. Callers pass ``valid=alive``:
-    an exact ranking without tombstones equals dropping them at re-rank."""
+    an exact ranking without tombstones equals dropping them at re-rank.
+    q has the index's logical width; the rows' lane-pad columns are zero,
+    and the packed kernel skips them (``d_live``)."""
+    d_live = q.shape[1]
     q = _pad_cols(q, vectors.shape[1])
     if exact_ops.use_fused_exact_pool(vectors.shape[0], vectors.shape[1], ef_buf):
         return exact_ops.exact_pool_scored(
             q, vectors, valid, ef_buf=ef_buf, metric=metric, xn2=xn2,
-            packed=None,
+            packed=None, d_live=d_live,
         )
     scores = distance_ops.pairwise_rank_scores(q, vectors, valid, metric)
     top, idx = torch.topk(scores, ef_buf, dim=1)

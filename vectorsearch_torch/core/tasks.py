@@ -724,14 +724,15 @@ class GlobalWorkerRunner:
     task it resolves the target index by name, reconstructing config from the
     persisted IndexMeta (data params) + the WorkerConfig template (operational
     params), with zero local workers. Malformed tasks fail their claim.
+    ``device`` is where the runner's indexes live (not persisted; with no
+    card the default raises when a task opens its index).
     """
 
     def __init__(self, storage, worker_config, build_queue: TaskQueue,
-                 maintenance_queue: TaskQueue):
-        from vectorsearch_torch.config import WorkerConfig
-
+                 maintenance_queue: TaskQueue, *, device="cuda"):
         self._storage = storage
         self._worker_config = worker_config
+        self._device = device
         self._build_queue = build_queue
         self._maint_queue = maintenance_queue
         self._indexes: Dict[str, Any] = {}  # cached runtimes per index path
@@ -753,7 +754,8 @@ class GlobalWorkerRunner:
                 raise ValueError(f"invalid task: unknown index path {index_path!r}")
             meta = IndexMeta.from_json(meta_json)
             cfg = VectorIndexConfig.from_index_meta(
-                meta, self._storage, index_path, self._worker_config
+                meta, self._storage, index_path, self._worker_config,
+                device=self._device,
             )
             # Follow-up tasks must stay on the global queues (reference :224-242).
             from vectorsearch_torch.config import GlobalTaskQueueConfig

@@ -1,10 +1,13 @@
-// Exact binned pool B1 on Hopper's tensor cores: the counterpart of the TPU
-// kernel vectorsearch_tpu/ops/pallas/exact.py::_pool_kernel (reached through
-// exact_bin_pool), launched through exact_pool_launch below.
+// Exact binned pools B1 and B2 on Hopper's tensor cores: the counterparts
+// of the TPU kernels vectorsearch_tpu/ops/pallas/exact.py::_pool_kernel
+// (B1, reached through exact_bin_pool; launched through exact_pool_launch
+// below) and ::_packed_pool_kernel (B2, reached through
+// exact_bin_pool_packed; launched through exact_pool_packed_launch). One
+// mainloop serves both: the template flag PACKED picks B2's epilogue.
 //
-// Function (the TPU kernel's, so the two pools compare directly): for each
-// query q and each pool column (group g, bin b), the max over the rows r < N
-// with r / (fold*tile) == g and r % bins == b of the rank score
+// B1's function (the TPU kernel's, so the two pools compare directly): for
+// each query q and each pool column (group g, bin b), the max over the rows
+// r < N with r / (fold*tile) == g and r % bins == b of the rank score
 //     L2:     s = (2q).x - aux0[r]           (aux0 = ||x||^2, +inf if invalid;
 //                                              the wrapper pre-doubles q)
 //     COSINE: s = (q.x) * aux0[r] + aux1[r]  (aux0 = 1/||x|| or 0 for a zero
@@ -13,40 +16,58 @@
 // (its id is -1 here; callers mask it). Rows past N are never read. The max
 // compares with `>`, so a NaN score never wins (as in the TPU kernel).
 //
-// What bounds it on an H100: a [Q, N] x [N, D] product folded into a per-bin
-// reduction, so the [Q, N] score matrix never reaches device memory. At the
-// sift1m 8-segment group (Q 512, N 800,768, D 128) that is 105 GFLOP against
-// 410 MB of x: operations bound it (the bytes take ~0.13 ms at 3.35 TB/s).
-// The scores become true distances with no re-rank behind them
-// (exact_finalize), so the product must keep FP32's precision.
+// B2's function: the same scan, but per TILE t = g*fold + j of the group the
+// raw (max m, smallest slice a) of each bin is compressed once into one
+// exact-integer f32
+//     p = rint(v * mult[q]) * F + (j * tile/bins + a),  F = fold * tile/bins
+// with v = -sqrt(max(qn2[q] - m, 0)) for L2 (minus the distance; the sqrt
+// runs once per tile, not per element) and v = m for cosine, and the column
+// holds the max of p over the group's tiles. mult = SQ/scale with
+// SQ = 2^23/F keeps |p| < 2^24. Tiles are quantized one by one (two tiles on
+// one step resolve toward the higher slot), rint rounds half to even, a dead
+// bin reads -inf. The build uses no fast-math: the epilogue needs IEEE
+// sqrtf and rintf.
+//
+// Both read features 0 .. dl-1 of each row (dl <= D, the row stride): the
+// index lane-pads rows with zero columns (Deep10M: 96 -> 128), which add
+// exact zeros to every product, so they are skipped.
+//
+// What bounds it on an H100: a [Q, N] x [N, dl] product folded into a
+// per-bin reduction, so the [Q, N] score matrix never reaches device memory.
+// At the sift1m 8-segment group (Q 512, N 800,768, D 128) that is 105 GFLOP
+// against 410 MB of x; at the Deep10M 8-segment group (N 8,000,512, dl 96)
+// 0.79 TFLOP against 3.1 GB: operations bound both. The scores become true
+// distances with no re-rank behind them (exact_finalize), so the product
+// must keep FP32's precision.
 //
 // Precision: 3xTF32. Each operand v splits into big = tf32_rna(v) and
 // small = tf32_rna(v - big) (v - big is exact in f32), and the tensor cores
 // accumulate small_q.big_x + big_q.small_x + big_q.big_x in f32: a relative
-// error of ~2^-21, FP32's class, so the plain version (full f32) and the
-// card check's tolerance stay as they were. The tensor cores only ever see
-// values whose low 13 bits are zero. The TPU kernel's split-bf16 form would
-// run twice the tensor rate on paper, but errs by up to ~1.1e-5 x 2|q||x|,
-// the edge of that tolerance. Three TF32 passes at 495 TFLOP/s put this
-// kernel's ceiling at ~0.64 ms for the shape above.
+// error of ~2^-21, FP32's class, so the plain versions (full f32) and the
+// card check's tolerances stay as they were (B2's packed levels are ~2^-17
+// of the scale apart, so they move by at most one). The tensor cores only
+// ever see values whose low 13 bits are zero. The TPU kernel's split-bf16
+// form would run twice the tensor rate on paper, but errs by up to ~1.1e-5 x
+// 2|q||x|, the edge of B1's tolerance. Three TF32 passes at 495 TFLOP/s put
+// B1's ceiling at ~0.64 ms for the sift1m shape, B2's at ~4.8 ms for the
+// Deep10M one.
 //
-// Design, against the three limits of the FP32 kernel it replaces:
-// - FP32 FMA on the CUDA cores (67 TFLOP/s peak): the product runs on the
-//   tensor cores, as warpgroup MMA (wgmma m64nNk8 TF32) with x in registers
-//   as the A operand and the query tile in shared memory as B.
-// - Synchronous staging with bank conflicts: x arrives by cp.async (16-byte
-//   copies, zero-filled past N and past D; 4-byte copies when rows are not
-//   16-byte aligned) into rings of STAGES stages of 32 features, whose
-//   padded row stride (36 floats) makes every fragment load conflict-free.
-//   Each warpgroup has a ring of its own 64 rows and its own named barrier,
-//   one wait per stage with the next stages' copies in flight, so the two
-//   warpgroups drift apart and one's epilogue and fragment splits overlap
-//   the other's MMAs (faster on the card than one ring of 128 rows under
-//   block barriers).
-// - The query tile staged again per row slice: it is split into big and
-//   small once, at block start, into two shared-memory planes in wgmma's
-//   K-major layout (no swizzle: 8x4 core matrices of 128 contiguous bytes),
-//   where it stays for all of the block's slices.
+// Design:
+// - The product runs on the tensor cores, as warpgroup MMA (wgmma m64nNk8
+//   TF32) with x in registers as the A operand and the query tile in shared
+//   memory as B.
+// - x arrives by cp.async (16-byte copies, zero-filled past N and past dl;
+//   4-byte copies when rows are not 16-byte aligned) into rings of 32
+//   features a stage (B1 4 stages, B2 3), whose padded row stride (36
+//   floats) makes every fragment load conflict-free. Each warpgroup has a
+//   ring of its own 64 rows and its own named barrier, one wait per stage
+//   with the next stages' copies in flight, so the two warpgroups drift
+//   apart and one's epilogue and fragment splits overlap the other's MMAs
+//   (faster on the card than one ring of 128 rows under block barriers).
+// - The query tile is split into big and small once, at block start, into
+//   two shared-memory planes in wgmma's K-major layout (no swizzle: 8x4 core
+//   matrices of 128 contiguous bytes), where it stays for all of the block's
+//   slices.
 // The grid is (query tile of NQ <= 128, 128 pool columns of one group). A
 // block's two warpgroups take rows 0-63 and 64-127 of each 128-row slice
 // (slice sl of the block is rows group_row0 + sl*bins + b0 .. +127, so
@@ -54,17 +75,36 @@
 // (max, slice) of each (row, query) pair lives in registers in the
 // accumulator's own fragment layout, so a slice's epilogue is elementwise:
 // take off the column term, keep score and slice on `>`. Slices ascend, so
-// the smallest row wins a tie. Slice indices are 16 bits, two per register.
+// the smallest row wins a tie. B1's slice indices (in the group) are 16
+// bits, two per register; B2's (in the tile: a < tile/bins <= 16, and the
+// packed slot is j * tile/bins + a) are 4 bits, eight per register.
+// B2's running packed maxima would be a fourth register plane (64 more
+// registers a thread at NQ 128, beside B1's 244): they live in shared memory
+// instead, NQ/2 values of each thread (64 KB at NQ 128), read and written
+// once per tile (every tile/bins slices) by the thread that owns them, so
+// its tile epilogue compresses its (max, slice), merges it (the group's
+// first tile writes) and starts the next tile afresh; the block writes the
+// plane out at its end. (Merged into the output in device memory instead,
+// the reads stalled the tile epilogues; with 16-bit slice indices, or with
+// both places behind a runtime switch, the NQ 128 form spilled registers.)
+// B2 gives a ring stage up for that plane. B2 also sums each 32-feature
+// chunk's products apart and adds the chunks in registers (CHUNK_SUM
+// below), which keeps its packed levels within one step of a full-f32
+// product; at 128 queries a tile its MMAs run as two halves of 64 queries
+// in turn to make room for that plane.
 // blockIdx.x is the query tile, so the query tiles of one column block run
 // side by side and x is read from device memory about once. Features are
-// taken in whole stages of 32 (zero past D). NQ is the power of two up to
-// 128 that Q needs. Its resident planes take 2 * NQ * ceil32(D) * 4 bytes
-// beside the 72 KB of rings: D up to 128 at NQ 128, 288 at NQ 64, 576 at NQ
-// 32. NQ halves (not below 32, or what Q needs) until they fit. Wider rows
-// take the streamed form (SQ): each ring stage also brings the query tile's
-// 32 features of that step, which the warpgroup splits into planes of its
-// own before its MMAs (one more named barrier per step), at NQ up to 64.
-// Any D runs; the main path's D is 128 (resident, NQ 128).
+// taken in whole stages of 32 (zero past dl). NQ is the power of two up to
+// 128 that Q needs. Its resident planes take 2 * NQ * ceil32(dl) * 4 bytes
+// beside the rings (B1 72 KB; B2 54 KB and its 64 KB packed plane): B1
+// takes dl up to 128 at NQ 128, 288 at NQ 64, 576 at NQ 32; B2 96 at NQ
+// 128, 256 at NQ 64, 608 at NQ 32. NQ halves (not below 32, or what Q
+// needs) until they fit. Wider rows take the streamed form (SQ): each ring
+// stage also brings the query tile's 32 features of that step, which the
+// warpgroup splits into planes of its own before its MMAs (one more named
+// barrier per step), at NQ up to 64. Any D runs; the main paths' are 128
+// (B1: resident, NQ 128) and, at Deep10M, dl 96 of 128 (B2: resident,
+// NQ 128).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -75,7 +115,7 @@ namespace {
 constexpr int ROWS = 128;     // pool columns (bins) per block = rows per slice
 constexpr int KC = 32;        // features per ring stage
 constexpr int XS = KC + 4;    // a stage's row stride in floats
-constexpr int STAGES = 4;     // ring depth
+constexpr int STAGES = 4;     // ring depth (B2: 3, for its packed plane)
 constexpr int THREADS = 256;  // two warpgroups of 64 rows
 constexpr int WG_THREADS = 128;
 constexpr int WG_ROWS = 64;
@@ -100,10 +140,12 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& big,
   small = to_tf32(v - __uint_as_float(big));
 }
 
+// 16 bytes into shared memory, of which the first `bytes` (0-16) come from
+// src and the rest are zero
 __device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
-                                           bool ok) {
+                                           int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
@@ -253,22 +295,46 @@ __device__ __forceinline__ void plane_pos(int o, int kp, int& n, int& k) {
   k = ((o >> 5) % (kp >> 2)) * 4 + (o & 3);
 }
 
+// The kernel's arguments (one struct, passed by value).
+struct PoolArgs {
+  const float* q;     // [Q, D] (pre-doubled for L2)
+  const float* x;     // [N, D]
+  const float* aux0;  // [N]
+  const float* aux1;  // [N] (COSINE only)
+  const float* mult;  // [Q] SQ / scale (B2 only)
+  const float* qn2;   // [Q] ||q||^2 (B2, L2 only)
+  float* out_s;       // [Q, W] B1's scores, or B2's packed plane
+  int* out_i;         // [Q, W] B1's row ids
+  int Q, N, D, dl, kq, tile, bins, fold, W, cosine, vec;
+  float slot_f;       // B2's F
+};
+
+// Ring depth: B2 gives a stage up to make room for its packed plane.
+template <bool PACKED>
+__host__ __device__ constexpr int ring_stages() { return PACKED ? 3 : STAGES; }
+
+// Bytes of shared memory: the query planes, the two warpgroups' rings and
+// B2's packed plane (NQ/2 values of each of the block's threads).
+template <bool PACKED>
+size_t smem_bytes(int nq, int kq, bool sq) {
+  const size_t planes = sq ? (size_t)4 * nq * KC : (size_t)2 * nq * kq;
+  const size_t rings = (size_t)2 * ring_stages<PACKED>() * (WG_ROWS + (sq ? nq : 0)) * XS;
+  return sizeof(float) * (planes + rings + (PACKED ? (size_t)nq / 2 * THREADS : 0));
+}
+
 // Shared memory: resident (SQ false): the two planes [NQ x kq], then each
-// warpgroup's ring of STAGES x [64 x XS]. Streamed: each warpgroup's two
-// planes [NQ x KC], then its ring of STAGES x ([64 x XS] of x, [NQ x XS] of
-// the query tile's raw features).
-template <int NQ, bool SQ>
-__global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(
-    const float* __restrict__ q,     // [Q, D]
-    const float* __restrict__ x,     // [N, D]
-    const float* __restrict__ aux0,  // [N]
-    const float* __restrict__ aux1,  // [N] (COSINE only)
-    float* __restrict__ out_s,       // [Q, W]
-    int* __restrict__ out_i,         // [Q, W]
-    int Q, int N, int D, int kq, int tile, int bins, int fold, int W,
-    int cosine, int vec) {
+// warpgroup's ring of NST x [64 x XS]. Streamed: each warpgroup's two
+// planes [NQ x KC], then its ring of NST x ([64 x XS] of x, [NQ x XS] of
+// the query tile's raw features). Then B2's packed plane.
+template <int NQ, bool SQ, bool PACKED>
+__global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(const PoolArgs a) {
   extern __shared__ __align__(128) float smem[];
+  constexpr int NST = ring_stages<PACKED>();
   constexpr int STAGE = (WG_ROWS + (SQ ? NQ : 0)) * XS;  // floats per stage
+  const float* __restrict__ q = a.q;
+  const float* __restrict__ x = a.x;
+  const int Q = a.Q, N = a.N, D = a.D, dl = a.dl, kq = a.kq, bins = a.bins;
+  const bool cosine = a.cosine != 0;
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
   const int me = tid & (WG_THREADS - 1);  // index in the warpgroup
@@ -276,56 +342,64 @@ __global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(
   const int kp = SQ ? KC : kq;            // features per query plane
   float* qb = smem + (SQ ? wg * 2 * NQ * KC : 0);  // big halves of the queries
   float* qs = qb + NQ * kp;                        // their small halves
-  float* ring = smem + (SQ ? 4 * NQ * KC : 2 * NQ * kq) + wg * STAGES * STAGE;
+  float* ring = smem + (SQ ? 4 * NQ * KC : 2 * NQ * kq) + wg * NST * STAGE;
+  // B2's packed plane: element i of thread tid at pk[i * THREADS + tid]
+  float* pk = smem + (SQ ? 4 * NQ * KC : 2 * NQ * kq) + 2 * NST * STAGE;
   const int g = (tid & 31) >> 2, t = tid & 3;
   const int lr0 = (tid >> 5) * 16 + g;  // this thread's rows: lr0, lr0 + 8
   const int q0 = blockIdx.x * NQ;
   const int col_blocks = bins / ROWS;
   const int grp = blockIdx.y / col_blocks;
   const int b0 = (blockIdx.y % col_blocks) * ROWS;
-  const long long first = (long long)grp * fold * tile + b0;
-  const int slices = fold * (tile / bins);
+  const long long first = (long long)grp * a.fold * a.tile + b0;
+  const int per = a.tile / bins;  // row slices per tile
+  const int slices = a.fold * per;
   // slices holding rows < N (later ones lie further past N)
   const int nsl = first >= N ? 0
       : (int)(((N - first + bins - 1) / bins) < slices
                   ? (N - first + bins - 1) / bins : slices);
   const int nch = kq / KC;  // ring stages per slice
   const int steps = nsl * nch;
+  const long long col0 = (long long)grp * bins + b0;
 
   // step s = (slice s / nch, feature chunk s % nch) -> its ring stage
   auto load_stage = [&](int s) {
     const int sl = s / nch;
     const long long base = first + (long long)sl * bins + row0;
     const int k0 = (s - sl * nch) * KC;
-    float* st = ring + (s % STAGES) * STAGE;
-    if (vec) {
+    float* st = ring + (s % NST) * STAGE;
+    if (a.vec) {
       for (int e = me; e < WG_ROWS * KC / 4; e += WG_THREADS) {
         const int row = e >> 3, kk = (e & 7) * 4;
         const long long r = base + row;
-        const bool ok = r < N && k0 + kk < D;
-        cp_async16(smem_addr(st + row * XS + kk), ok ? x + r * D + k0 + kk : x, ok);
+        const int left = dl - k0 - kk;  // features of this copy below dl
+        const bool ok = r < N && left > 0;
+        cp_async16(smem_addr(st + row * XS + kk), ok ? x + r * D + k0 + kk : x,
+                   ok ? (left < 4 ? 4 * left : 16) : 0);
       }
     } else {
       for (int e = me; e < WG_ROWS * KC; e += WG_THREADS) {
         const int row = e >> 5, kk = e & 31;
         const long long r = base + row;
-        const bool ok = r < N && k0 + kk < D;
+        const bool ok = r < N && k0 + kk < dl;
         cp_async4(smem_addr(st + row * XS + kk), ok ? x + r * D + k0 + kk : x, ok);
       }
     }
-    if (SQ) {  // the query tile's features k0 .. k0 + 31 (zero past Q and D)
+    if (SQ) {  // the query tile's features k0 .. k0 + 31 (zero past Q and dl)
       float* sq = st + WG_ROWS * XS;
-      if (vec) {
+      if (a.vec) {
         for (int e = me; e < NQ * KC / 4; e += WG_THREADS) {
           const int n = e >> 3, kk = (e & 7) * 4, qi = q0 + n;
-          const bool ok = qi < Q && k0 + kk < D;
+          const int left = dl - k0 - kk;
+          const bool ok = qi < Q && left > 0;
           cp_async16(smem_addr(sq + n * XS + kk),
-                     ok ? q + (long long)qi * D + k0 + kk : q, ok);
+                     ok ? q + (long long)qi * D + k0 + kk : q,
+                     ok ? (left < 4 ? 4 * left : 16) : 0);
         }
       } else {
         for (int e = me; e < NQ * KC; e += WG_THREADS) {
           const int n = e >> 5, kk = e & 31, qi = q0 + n;
-          const bool ok = qi < Q && k0 + kk < D;
+          const bool ok = qi < Q && k0 + kk < dl;
           cp_async4(smem_addr(sq + n * XS + kk),
                     ok ? q + (long long)qi * D + k0 + kk : q, ok);
         }
@@ -333,19 +407,19 @@ __global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(
     }
   };
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
+  for (int s = 0; s < NST - 1; ++s) {
     if (s < steps) load_stage(s);
     cp_async_commit();
   }
 
   // resident: the query tile, split once into the two planes (zero past Q
-  // and D)
+  // and dl)
   if (!SQ) {
     for (int o = tid; o < NQ * kq; o += THREADS) {
       int n, k;
       plane_pos(o, kq, n, k);
       const int qi = q0 + n;
-      const float v = (qi < Q && k < D) ? q[(long long)qi * D + k] : 0.f;
+      const float v = (qi < Q && k < dl) ? q[(long long)qi * D + k] : 0.f;
       uint32_t big, small;
       split_tf32(v, big, small);
       qb[o] = __uint_as_float(big);
@@ -355,40 +429,58 @@ __global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(
     __syncthreads();
   }
 
-  float acc[NQ / 2], best[NQ / 2];
-  uint32_t slot[NQ / 4];  // two 16-bit slice indices per register
+  // The winning slices: B1 keeps each one's index in the group, 16 bits,
+  // two per register; B2 its index in the tile (below 16), 4 bits, eight
+  // per register (a dead bin's stays unread: its packed value is -inf).
+  constexpr int SB = PACKED ? 4 : 16;  // bits per slice index
+  constexpr int SPR = 32 / SB;         // slice indices per register
+  constexpr int NSLOT = (NQ / 2 + SPR - 1) / SPR;
+  constexpr uint32_t SMASK = (1u << SB) - 1;
+  // B2 sums each 32-feature chunk's products apart (the chunk's first MMA
+  // overwrites the accumulator) and adds the chunks in registers: the
+  // tensor cores round each MMA's sum into the accumulator toward zero, so
+  // accumulated inside the MMAs over a slice the error grows with the
+  // running sum past B2's quantization step (up to 2-3 levels at F 8 over
+  // 128 features; tests/test_torch_exact_packed.py emulates it). At 128
+  // queries a tile that second plane only fits beside the others if the
+  // MMA runs as two halves of 64 queries in turn, through one 32-register
+  // accumulator (HALVES).
+  constexpr bool CHUNK_SUM = PACKED;
+  constexpr int HALVES = PACKED && NQ == 128 ? 2 : 1;
+  constexpr int NM = NQ / HALVES;  // queries per MMA
+  float acc[NM / 2], best[NQ / 2], sum[NQ / 2];
+  uint32_t slot[NSLOT];
 #pragma unroll
-  for (int i = 0; i < NQ / 2; ++i) {
-    acc[i] = 0.f;
-    best[i] = -CUDART_INF_F;
-  }
+  for (int i = 0; i < NM / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < NQ / 4; ++i) slot[i] = 0xFFFFFFFFu;
+  for (int i = 0; i < NQ / 2; ++i) best[i] = -CUDART_INF_F;
+#pragma unroll
+  for (int i = 0; i < NSLOT; ++i) slot[i] = 0xFFFFFFFFu;
   float ca0 = 0.f, cb0 = 0.f, ca1 = 0.f, cb1 = 0.f;  // rows lr0, lr0 + 8
   const uint32_t pb = smem_addr(qb), ps = smem_addr(qs);
   const uint32_t sbo = (uint32_t)kp * 32;
 
   for (int s = 0; s < steps; ++s) {
-    cp_async_wait<STAGES - 2>();
+    cp_async_wait<NST - 2>();
     // stage s landed; stage s - 1 is free for reuse
     asm volatile("bar.sync %0, %1;\n" :: "r"(1 + wg), "n"(WG_THREADS) : "memory");
-    if (s + STAGES - 1 < steps) load_stage(s + STAGES - 1);
+    if (s + NST - 1 < steps) load_stage(s + NST - 1);
     cp_async_commit();
 
     const int sl = s / nch, c = s - sl * nch;
     const long long r0 = first + (long long)sl * bins + lr0, r1 = r0 + 8;
     if (c == 0) {  // the slice's column terms, needed at its last chunk
-      ca0 = r0 < N ? aux0[r0] : 0.f;
-      ca1 = r1 < N ? aux0[r1] : 0.f;
-      cb0 = (cosine && r0 < N) ? aux1[r0] : 0.f;
-      cb1 = (cosine && r1 < N) ? aux1[r1] : 0.f;
+      ca0 = r0 < N ? a.aux0[r0] : 0.f;
+      ca1 = r1 < N ? a.aux0[r1] : 0.f;
+      cb0 = (cosine && r0 < N) ? a.aux1[r0] : 0.f;
+      cb1 = (cosine && r1 < N) ? a.aux1[r1] : 0.f;
     }
 
     if (SQ) {
       // streamed: this step's query features into the warpgroup's planes
       // (its MMAs of the last step are complete: each warp waited for them
       // before the barrier above)
-      const float* sq = ring + (s % STAGES) * STAGE + WG_ROWS * XS;
+      const float* sq = ring + (s % NST) * STAGE + WG_ROWS * XS;
       for (int o = me; o < NQ * KC; o += WG_THREADS) {
         int n, k;
         plane_pos(o, KC, n, k);
@@ -402,7 +494,7 @@ __global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(
     }
 
     // A fragments of x (rows lr0, lr0 + 8; features t, t + 4 of each k8)
-    const float* st = ring + (s % STAGES) * STAGE + (lr0 - row0) * XS + t;
+    const float* st = ring + (s % NST) * STAGE + (lr0 - row0) * XS + t;
     uint32_t ab[4][4], as[4][4];
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
@@ -414,22 +506,45 @@ __global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(
     }
 
 #pragma unroll
-    for (int i = 0; i < NQ / 2; ++i) reg_fence(acc[i]);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    for (int hf = 0; hf < HALVES; ++hf) {
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const uint32_t off = (uint32_t)((SQ ? 0 : c * 4) + ks) * 256;
-      const uint64_t db = smem_desc(pb + off, 128, sbo);
-      const uint64_t ds = smem_desc(ps + off, 128, sbo);
-      // a slice's first product overwrites the accumulator
-      Wgmma<NQ>::run(acc, as[ks], db, (c | ks) != 0);
-      Wgmma<NQ>::run(acc, ab[ks], ds, 1);
-      Wgmma<NQ>::run(acc, ab[ks], db, 1);
+      for (int i = 0; i < NM / 2; ++i) reg_fence(acc[i]);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      // the half's queries (NM / 8 octets) at this step's 8 features ks
+      auto desc = [&](uint32_t plane, int ks) {
+        return smem_desc(plane + (uint32_t)((SQ ? 0 : c * 4) + ks) * 256 +
+                             (uint32_t)(hf * NM / 8) * sbo, 128, sbo);
+      };
+      if constexpr (CHUNK_SUM) {
+        // a chunk's first product overwrites the accumulator; the small
+        // terms go first, so the running sum is small while they are added
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) Wgmma<NM>::run(acc, as[ks], desc(pb, ks), ks != 0);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) Wgmma<NM>::run(acc, ab[ks], desc(ps, ks), 1);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) Wgmma<NM>::run(acc, ab[ks], desc(pb, ks), 1);
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          // a slice's first product overwrites the accumulator
+          Wgmma<NM>::run(acc, as[ks], desc(pb, ks), (c | ks) != 0);
+          Wgmma<NM>::run(acc, ab[ks], desc(ps, ks), 1);
+          Wgmma<NM>::run(acc, ab[ks], desc(pb, ks), 1);
+        }
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < NM / 2; ++i) reg_fence(acc[i]);
+      if (CHUNK_SUM) {
+#pragma unroll
+        for (int i = 0; i < NM / 2; ++i) {
+          const int k = hf * NM / 2 + i;
+          sum[k] = (c == 0 ? 0.f : sum[k]) + acc[i];
+        }
+      }
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-    for (int i = 0; i < NQ / 2; ++i) reg_fence(acc[i]);
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
@@ -439,58 +554,106 @@ __global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(
       }
 
     if (c == nch - 1) {
-      // epilogue in the accumulator's layout: acc[4j + 2h + e] is row
-      // lr0 + 8h, query q0 + 8j + 2t + e
+      // epilogue in the accumulator's layout: acc[4j + 2h + e] (B2:
+      // sum[..]) is row lr0 + 8h, query q0 + 8j + 2t + e
       const bool ok0 = r0 < N, ok1 = r1 < N;
+      const int in_tile = sl % per;
+      const uint32_t now = PACKED ? (uint32_t)in_tile : (uint32_t)sl;
 #pragma unroll
       for (int j = 0; j < NQ / 8; ++j) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const bool ok = h ? ok1 : ok0;
           const float ca = h ? ca1 : ca0, cb = h ? cb1 : cb0;
-          uint32_t sp = slot[2 * j + h];
+          // both elements' slice indices share a register; the update is a
+          // branch, as in B1's kernel before B2 joined it (on the card both
+          // pools ran faster with it than with selects)
+          uint32_t sp = slot[(4 * j + 2 * h) / SPR];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int i = 4 * j + 2 * h + e;
-            const float sc = cosine ? acc[i] * ca + cb : acc[i] - ca;
+            const int sh = (i % SPR) * SB;
+            float dot;
+            if constexpr (CHUNK_SUM) dot = sum[i];
+            else dot = acc[i];
+            const float sc = cosine ? dot * ca + cb : dot - ca;
             if (ok && sc > best[i]) {
               best[i] = sc;
-              sp = e ? (sp & 0xFFFFu) | ((uint32_t)sl << 16)
-                     : (sp & 0xFFFF0000u) | (uint32_t)sl;
+              sp = (sp & ~(SMASK << sh)) | (now << sh);
             }
           }
-          slot[2 * j + h] = sp;
+          slot[(4 * j + 2 * h) / SPR] = sp;
         }
+      }
+      if (PACKED && (in_tile == per - 1 || sl + 1 == nsl)) {
+        // B2: the tile ends here. Compress each (max, slice) once, merge it
+        // into the output (the group's first tile writes), start afresh.
+        const bool first_tile = sl < per;
+        const int tile0 = sl - in_tile;  // the tile's first slice
+#pragma unroll
+        for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int qi = q0 + 8 * j + 2 * t + e;
+            const bool live = qi < Q;
+            const float m = live ? __ldg(a.mult + qi) : 0.f;
+            const float n2 = (live && !cosine) ? __ldg(a.qn2 + qi) : 0.f;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 4 * j + 2 * h + e;
+              const float b = best[i];
+              const float v = cosine ? b : -sqrtf(fmaxf(n2 - b, 0.f));
+              const int sv = tile0 + (int)((slot[i / SPR] >> ((i % SPR) * SB)) & SMASK);
+              const float p = rintf(v * m) * a.slot_f + (float)sv;
+              if (live) {
+                float* o = pk + i * THREADS + tid;
+                const float old = first_tile ? -CUDART_INF_F : *o;
+                *o = p > old ? p : old;  // a NaN never wins
+              }
+              best[i] = -CUDART_INF_F;
+            }
+          }
       }
     }
   }
 
-  const long long col0 = (long long)grp * bins + b0;
+  if constexpr (PACKED) {
+    // the packed plane out of shared memory; a column block past N (no
+    // tile) has every bin dead
 #pragma unroll
-  for (int j = 0; j < NQ / 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int j = 0; j < NQ / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int qi = q0 + 8 * j + 2 * t + e;
         if (qi >= Q) continue;
-        const int lr = lr0 + 8 * h;
-        const long long o = (long long)qi * W + col0 + lr;
-        const uint32_t sv = (slot[2 * j + h] >> (16 * e)) & 0xFFFFu;
-        out_s[o] = best[4 * j + 2 * h + e];
-        out_i[o] = sv == NO_SLICE ? -1 : (int)(first + (long long)sv * bins + lr);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h + e;
+          a.out_s[(long long)qi * a.W + col0 + lr0 + 8 * h] =
+              nsl == 0 ? -CUDART_INF_F : pk[i * THREADS + tid];
+        }
       }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = q0 + 8 * j + 2 * t + e;
+          if (qi >= Q) continue;
+          const int lr = lr0 + 8 * h;
+          const long long o = (long long)qi * a.W + col0 + lr;
+          const int i = 4 * j + 2 * h + e;
+          const uint32_t sv = (slot[i / SPR] >> ((i % SPR) * SB)) & SMASK;
+          a.out_s[o] = best[i];
+          a.out_i[o] = sv == NO_SLICE ? -1 : (int)(first + (long long)sv * bins + lr);
+        }
+  }
 }
 
-size_t smem_bytes(int nq, int kq, bool sq) {
-  return sizeof(float) * (sq ? (size_t)(4 * nq * KC + 2 * STAGES * (WG_ROWS + nq) * XS)
-                             : (size_t)(2 * nq * kq + STAGES * ROWS * XS));
-}
-
-template <int NQ, bool SQ>
-int launch(const float* q, const float* x, const float* aux0, const float* aux1,
-           float* out_s, int* out_i, int Q, int N, int D, int kq, int tile,
-           int bins, int fold, int W, int cosine, int vec, cudaStream_t stream) {
+template <int NQ, bool SQ, bool PACKED>
+int launch(const PoolArgs& a, cudaStream_t stream) {
   // each instantiation takes the device's opt-in maximum of shared memory
   // once per device, so later launches make no other CUDA call
   static bool ready[64];
@@ -502,46 +665,41 @@ int launch(const float* q, const float* x, const float* aux0, const float* aux1,
     int optin = 0;
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(exact_pool_tc_kernel<NQ, SQ>,
+      e = cudaFuncSetAttribute(exact_pool_tc_kernel<NQ, SQ, PACKED>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (e != cudaSuccess) return (int)e;
     ready[dev] = true;
   }
-  dim3 grid((Q + NQ - 1) / NQ, W / ROWS);
-  exact_pool_tc_kernel<NQ, SQ><<<grid, THREADS, smem_bytes(NQ, kq, SQ), stream>>>(
-      q, x, aux0, aux1, out_s, out_i, Q, N, D, kq, tile, bins, fold, W, cosine, vec);
+  const dim3 grid((a.Q + NQ - 1) / NQ, a.W / ROWS);
+  const size_t bytes = smem_bytes<PACKED>(NQ, a.kq, SQ);
+  exact_pool_tc_kernel<NQ, SQ, PACKED><<<grid, THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Launches on the caller's stream; returns cudaGetLastError() (0 =
-// launched), or cudaErrorInvalidValue for 65,535 or more row slices per
-// group. The other checks are the Python wrapper's
-// (vectorsearch_torch/ops/exact.py).
-extern "C" int exact_pool_launch(const float* q, const float* x,
-                                 const float* aux0, const float* aux1,
-                                 float* out_s, int* out_i, int Q, int N, int D,
-                                 int tile, int bins, int fold, int W, int cosine,
-                                 void* stream) {
-  if (Q <= 0 || W <= 0) return (int)cudaSuccess;
-  const int kq = (D + KC - 1) / KC * KC;
-  if ((long long)fold * (tile / bins) >= NO_SLICE) return (int)cudaErrorInvalidValue;
+// Picks the query tile and the form (resident or streamed) for the live
+// width and launches.
+template <bool PACKED>
+int dispatch(PoolArgs a, void* stream) {
+  if (a.Q <= 0 || a.W <= 0) return (int)cudaSuccess;
+  if (a.dl < 1 || a.dl > a.D) return (int)cudaErrorInvalidValue;
+  if ((long long)a.fold * (a.tile / a.bins) >= NO_SLICE ||
+      (PACKED && a.tile / a.bins > 16))
+    return (int)cudaErrorInvalidValue;
+  a.kq = (a.dl + KC - 1) / KC * KC;
   int want = 8;
-  while (want < 128 && want < Q) want *= 2;
+  while (want < 128 && want < a.Q) want *= 2;
   int nq = want;
   const int least = want < 32 ? want : 32;
-  while (nq > least && smem_bytes(nq, kq, false) > SMEM_MAX) nq /= 2;
-  const bool sq = smem_bytes(nq, kq, false) > SMEM_MAX;
-  if (sq) nq = want < 64 ? want : 64;  // 180 KB of shared memory at 64
-  const int vec = D % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
-                  (!sq || (reinterpret_cast<uintptr_t>(q) & 15) == 0);
+  while (nq > least && smem_bytes<PACKED>(nq, a.kq, false) > SMEM_MAX) nq /= 2;
+  const bool sq = smem_bytes<PACKED>(nq, a.kq, false) > SMEM_MAX;
+  if (sq) nq = want < 64 ? want : 64;  // B1 180 KB, B2 175 KB at 64
+  a.vec = a.D % 4 == 0 && (reinterpret_cast<uintptr_t>(a.x) & 15) == 0 &&
+          (!sq || (reinterpret_cast<uintptr_t>(a.q) & 15) == 0);
   auto s = (cudaStream_t)stream;
   switch (nq * 2 + sq) {
-#define EXACT_POOL_TC_LAUNCH(NQ, SQ)                                          \
-  case NQ * 2 + SQ:                                                           \
-    return launch<NQ, SQ>(q, x, aux0, aux1, out_s, out_i, Q, N, D, kq, tile,  \
-                          bins, fold, W, cosine, vec, s);
+#define EXACT_POOL_TC_LAUNCH(NQ, SQ) \
+  case NQ * 2 + SQ:                  \
+    return launch<NQ, SQ, PACKED>(a, s);
     EXACT_POOL_TC_LAUNCH(128, false)
     EXACT_POOL_TC_LAUNCH(64, false)
     EXACT_POOL_TC_LAUNCH(32, false)
@@ -554,4 +712,32 @@ extern "C" int exact_pool_launch(const float* q, const float* x,
 #undef EXACT_POOL_TC_LAUNCH
   }
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Both launch on the caller's stream and return cudaGetLastError() (0 =
+// launched), or cudaErrorInvalidValue for 65,535 or more row slices per
+// group or a live width outside 1 .. D. The other checks are the Python
+// wrappers' (vectorsearch_torch/ops/exact.py).
+extern "C" int exact_pool_launch(const float* q, const float* x,
+                                 const float* aux0, const float* aux1,
+                                 float* out_s, int* out_i, int Q, int N, int D,
+                                 int tile, int bins, int fold, int W, int cosine,
+                                 void* stream) {
+  const PoolArgs a{q, x, aux0, aux1, nullptr, nullptr, out_s, out_i, Q, N, D,
+                   D, 0, tile, bins, fold, W, cosine, 0, 0.f};
+  return dispatch<false>(a, stream);
+}
+
+extern "C" int exact_pool_packed_launch(const float* q, const float* x,
+                                        const float* aux0, const float* aux1,
+                                        const float* mult, const float* qn2,
+                                        float* out, int Q, int N, int D,
+                                        int d_live, int tile, int bins,
+                                        int fold, int W, int cosine,
+                                        float slot_f, void* stream) {
+  const PoolArgs a{q, x, aux0, aux1, mult, qn2, out, nullptr, Q, N, D,
+                   d_live, 0, tile, bins, fold, W, cosine, 0, slot_f};
+  return dispatch<true>(a, stream);
 }

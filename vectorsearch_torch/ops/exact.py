@@ -2,10 +2,10 @@
 the pool), so the [Q, N] score matrix never has to be ranked whole.
 
 Mirrors ``vectorsearch_tpu/ops/pallas/exact.py``. Its two TPU kernels become
-hand-written CUDA kernels: ``_pool_kernel`` (two planes, score and row id) is
-``exact_pool_cuda`` (``vectorsearch_torch/csrc/exact_pool_tc.cu``, on the
-tensor cores), and ``_packed_pool_kernel`` (one plane of score|slot values)
-is ``exact_pool_packed_cuda`` (``csrc/exact_pool.cu``). Each has a plain
+one hand-written CUDA source on the tensor cores,
+``vectorsearch_torch/csrc/exact_pool_tc.cu``: ``_pool_kernel`` (two planes,
+score and row id) is ``exact_pool_cuda``, and ``_packed_pool_kernel`` (one
+plane of score|slot values) is ``exact_pool_packed_cuda``. Each has a plain
 PyTorch version beside it (``exact_pool_plain``, ``exact_pool_packed_plain``)
 that computes the same function and is what a CPU tensor runs. A CUDA tensor
 launches the kernel or raises: there is no fallback.
@@ -113,12 +113,8 @@ def _bind_tc(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.exact_pool_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.exact_pool_launch.restype = ctypes.c_int
-
-
-def _bind_packed(lib) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
     lib.exact_pool_packed_launch.argtypes = [
-        p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p,
+        p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p,
     ]
     lib.exact_pool_packed_launch.restype = ctypes.c_int
 
@@ -130,8 +126,9 @@ _MAX_SLICES = 65_534  # csrc/exact_pool_tc.cu: 16-bit slice ids, one kept free
 def _check_kernel_args(who, q_in, x, aux, metric, tile, bins, fold, w,
                        per_query=()):
     """Raises on what the pool kernels do not take: tensors off the card
-    or of another type, shape or layout, and a geometry that does not
-    cover N (``per_query``: extra (name, tensor) pairs of shape [Q])."""
+    or of another type, shape or layout, a geometry that does not cover N,
+    and more row slices per group than 16-bit slice ids hold
+    (``per_query``: extra (name, tensor) pairs of shape [Q])."""
     qn, d = q_in.shape
     n = x.shape[0]
     dev = x.device
@@ -156,6 +153,11 @@ def _check_kernel_args(who, q_in, x, aux, metric, tile, bins, fold, w,
         )
     if n >= 2**31:
         raise ValueError(f"{who}: table too large for int32 row ids")
+    if fold * (tile // bins) > _MAX_SLICES:
+        raise ValueError(
+            f"{who}: fold={fold} x tile/bins={tile // bins} row slices per "
+            f"pool group, at most {_MAX_SLICES:,}"
+        )
 
 
 def exact_pool_cuda(q_in, x, aux, *, metric, tile, bins, fold, w):
@@ -168,11 +170,6 @@ def exact_pool_cuda(q_in, x, aux, *, metric, tile, bins, fold, w):
     dev = x.device
     _check_kernel_args("exact_pool_cuda", q_in, x, aux, metric, tile, bins,
                        fold, w)
-    if fold * (tile // bins) > _MAX_SLICES:
-        raise ValueError(
-            f"exact_pool_cuda: fold={fold} x tile/bins={tile // bins} row "
-            f"slices per pool group, at most {_MAX_SLICES:,}"
-        )
     lib = cuda_build.load("exact_pool_tc", _bind_tc)
     outs = torch.empty((qn, w), dtype=torch.float32, device=dev)
     outi = torch.empty((qn, w), dtype=torch.int32, device=dev)
@@ -232,12 +229,14 @@ def bin_argmax(s: torch.Tensor, *, tile, bins, fold, w):
 
 
 def exact_pool_packed_cuda(q_in, x, aux, mult, qn2, *, metric, tile, bins,
-                           fold, w, slot_f):
+                           fold, w, slot_f, d_live=None):
     """Launches the packed CUDA pool kernel on the current stream. q_in
     f32[Q, D] (pre-doubled for L2), x f32[N, D], aux f32[1|2, N], mult and
     qn2 f32[Q] (the quantization factor SQ/scale and ||q||^2) -> the packed
-    plane f32[Q, W]. ``exact_pool_packed_cuda.launches`` counts the
-    launches."""
+    plane f32[Q, W]. ``d_live`` (default D): the kernel reads features
+    0 .. d_live-1 only; the caller vouches that the others are zero in q_in
+    or in x (lane padding), so skipping them changes no bit.
+    ``exact_pool_packed_cuda.launches`` counts the launches."""
     qn = q_in.shape[0]
     n, d = x.shape
     dev = x.device
@@ -247,7 +246,17 @@ def exact_pool_packed_cuda(q_in, x, aux, mult, qn2, *, metric, tile, bins,
         raise ValueError(
             f"exact_pool_packed_cuda: slot_f={slot_f} is not fold*tile/bins"
         )
-    lib = cuda_build.load("exact_pool", _bind_packed)
+    if tile // bins > 16:
+        raise ValueError(
+            f"exact_pool_packed_cuda: tile/bins={tile // bins} row slices per "
+            "tile, at most 16 (4-bit slice ids)"
+        )
+    d_live = d if d_live is None else int(d_live)
+    if not 1 <= d_live <= d:
+        raise ValueError(
+            f"exact_pool_packed_cuda: d_live={d_live} outside 1 .. {d}"
+        )
+    lib = cuda_build.load("exact_pool_tc", _bind_tc)
     out = torch.empty((qn, w), dtype=torch.float32, device=dev)
     cosine = metric == "COSINE"
     with torch.cuda.device(dev):
@@ -255,7 +264,7 @@ def exact_pool_packed_cuda(q_in, x, aux, mult, qn2, *, metric, tile, bins,
             q_in.data_ptr(), x.data_ptr(), aux[0].data_ptr(),
             aux[1].data_ptr() if cosine else None,
             mult.data_ptr(), qn2.data_ptr(), out.data_ptr(),
-            qn, n, d, tile, bins, fold, w, int(cosine), slot_f,
+            qn, n, d, d_live, tile, bins, fold, w, int(cosine), slot_f,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -269,10 +278,11 @@ exact_pool_packed_cuda.launches = 0
 
 
 def exact_pool_packed_plain(q_in, x, aux, mult, qn2, *, metric, tile, bins,
-                            fold, w, slot_f):
+                            fold, w, slot_f, d_live=None):
     """The packed kernel's function in plain PyTorch (same arguments and
-    output). Per TILE: the raw (max, smallest slot) of each bin over the
-    tile's row slices, compressed once into
+    output; ``d_live`` is not needed: the columns past it are zero and add
+    exact zeros to the full product). Per TILE: the raw (max, smallest
+    slot) of each bin over the tile's row slices, compressed once into
         p = rint(v * mult) * F + (j * tile/bins + slot),  F = slot_f,
     with v = -sqrt(max(||q||^2 - max, 0)) (L2: minus the distance) or
     v = max (cosine) and j the tile's place in its fold group; the pool
@@ -367,13 +377,17 @@ def packed_pool_inputs(
     xn2: torch.Tensor | None = None,
     fold: int | None = None,
     min_w: int = 16384,
+    d_live: int | None = None,
 ):
     """The packed kernel's arguments: (q_in, aux, mult, qn2, step, geometry),
     the two-plane kernel's q_in and aux plus, per query, the quantization
     factor mult = SQ/scale, ||q||^2 (zeros for cosine) and the
     dequantization step scale/SQ. ``scale`` bounds every valid value the
     kernel quantizes: L2 ||q|| + max valid ||x|| (a bound on the distance),
-    cosine ||q||; both at least 1e-30."""
+    cosine ||q||; both at least 1e-30. The geometry carries ``d_live``
+    (default D: the features past it are zero padding); the tile is chosen
+    at the padded D, as in the JAX package, since it decides which rows
+    share a bin."""
     q_in, aux, geom = pool_inputs(q, x, valid, metric, tile_n, xn2, fold, min_w)
     slot_f, sq_steps = _packed_steps(geom["tile"], geom["bins"], geom["fold"])
     qf = q.float()
@@ -387,8 +401,9 @@ def packed_pool_inputs(
         scale = torch.clamp(qnorm + torch.sqrt(mx2), min=1e-30)
         qn2 = qnorm * qnorm
     mult = (sq_steps / scale).contiguous()
+    d_live = q.shape[1] if d_live is None else d_live
     return (q_in, aux, mult, qn2.contiguous(), scale / sq_steps,
-            dict(geom, slot_f=slot_f))
+            dict(geom, slot_f=slot_f, d_live=d_live))
 
 
 def exact_bin_pool_packed(
@@ -400,13 +415,16 @@ def exact_bin_pool_packed(
     xn2: torch.Tensor | None = None,
     fold: int | None = None,
     min_w: int = 16384,
+    d_live: int | None = None,
 ):
     """Packed stage 1: (ONE f32[Q, W] plane whose values order by quantized
     score and carry the winning slot, the dequantization step f32[Q]).
     Decode with decode_packed_pool under the same geometry arguments. A
-    CUDA tensor runs the kernel, a CPU tensor its plain version."""
+    CUDA tensor runs the kernel, a CPU tensor its plain version.
+    ``d_live``: the features past it are zero (lane padding); the kernel
+    skips them."""
     q_in, aux, mult, qn2, step, geom = packed_pool_inputs(
-        q, x, valid, metric, tile_n, xn2, fold, min_w
+        q, x, valid, metric, tile_n, xn2, fold, min_w, d_live
     )
     fn = exact_pool_packed_cuda if x.is_cuda else exact_pool_packed_plain
     return fn(q_in, x, aux, mult, qn2, **geom), step
@@ -473,6 +491,7 @@ def exact_pool_scored(
     xn2: torch.Tensor | None = None,
     fold: int | None = None,
     packed: bool | None = None,
+    d_live: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact candidate pool WITH its rank scores: (scores f32[Q, ef_buf],
     row ids i32[Q, ef_buf]), -inf / -1 in empty slots. The scores are the
@@ -484,14 +503,16 @@ def exact_pool_scored(
     single packed score|slot plane and stage 2 decodes the row ids from the
     values and their columns. Its scores carry the packing's quantization
     (a step of scale/SQ); ``stage2_halve`` reduces (score, id) pairs and so
-    always takes the two-plane kernel."""
+    always takes the two-plane kernel. ``d_live``: the features past it are
+    zero (lane padding), which the packed kernel skips; the two-plane kernel
+    reads every feature."""
     if packed is None:
         packed = _packed_default(x.shape[0])
     min_w = max(16384, 4 * ef_buf)
     if packed and not stage2_halve:
         pool, step = exact_bin_pool_packed(
             q, x, valid, metric=metric, tile_n=tile_n, xn2=xn2, fold=fold,
-            min_w=min_w,
+            min_w=min_w, d_live=d_live,
         )
         pv, pos = torch.topk(pool, min(ef_buf, pool.shape[1]), dim=1)
         if pos.shape[1] < ef_buf:
