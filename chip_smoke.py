@@ -34,7 +34,9 @@ result):
    - the ADC kernels (B3 pool, B4 scores, B5 scan, B5 precise scan) at the
      sift1m segment shape (Q 512, M 16, K 256, N 100,096), a segment under
      16,384 rows (N 10,112), a tail case (N 50,123, ~2% valid rows, dead
-     bins) and a wide LUT (M 64, K 256, D 256);
+     bins), a wide LUT (M 64, K 256, D 256) and an integer-valued LUT whose
+     sums tie often; B3 and B5-precise bit-identical to their plain
+     versions, pool ids in every live bin included;
 4. end to end on sift1m (1M x 128 clustered rows from seed 42, 10 sealed
    segments of 100k, L2, 512-query batches, k = 10, recall@10 on 128
    held-out queries against float64 ground truth computed on the card):
@@ -68,7 +70,12 @@ result):
 5. timings at the sift1m shapes (B2: the Deep10M subgroups' shapes, its
    plain version over 64 queries): each kernel, its plain version, one
    PyTorch call computing the same function where there is one (the library
-   yardstick; the port never calls it) and the card's bound; for B1 also its
+   yardstick; the port never calls it) and the card's bound; for B3 and
+   B5-precise also their lookup ceiling (the shared-memory bank reads of
+   their Q*N_valid*M lookups at 32 a cycle per SM, at the card's maximum SM
+   clock; logged, not in the kernels line) and their time on codes that
+   are the same in every row (every load one line: no bank conflict); B4
+   at its route's N 10,112 five times; for B1 also its
    useful TFLOP/s, the ceiling of its 3xTF32 form at the TF32 peak, and its
    times at the 2-segment group, the Deep10M brute table and 3,072-feature
    rows (its streamed form, beside torch.matmul); for B2 its useful
@@ -456,20 +463,25 @@ def _check_packed(case, exact_ops, traversal_ops, *, plain_q=None, tile_n=None,
 
 
 def _adc_case(name, n, *, seed, qn=512, m=16, k=256, d=128, frac=1.0,
-              pad_from=None):
+              pad_from=None, ties=False):
     """A real LUT (queries near a random codebook's centroids, through
     build_lut), random byte codes and a validity mask, made on the card from
-    a seed. `pad_from`: rows from there on are invalid (a segment's pad)."""
+    a seed. `pad_from`: rows from there on are invalid (a segment's pad).
+    `ties`: an integer-valued LUT (0, 1 or 2) instead, so that row sums tie
+    often and the pool's ids hold its tie rule (the smallest row)."""
     import torch
 
     from vectorsearch_torch.ops import pq as pq_ops
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    cb = torch.randn(m, k, d // m, device="cuda", generator=g) * 4
-    pick = torch.randint(0, k, (qn, m), device="cuda", generator=g)
-    q = cb[torch.arange(m, device="cuda")[None, :], pick].reshape(qn, d)
-    q = q + torch.randn(qn, d, device="cuda", generator=g)
-    lut = pq_ops.build_lut(q, cb)
+    if ties:
+        lut = torch.randint(0, 3, (qn, m, k), device="cuda", generator=g).float()
+    else:
+        cb = torch.randn(m, k, d // m, device="cuda", generator=g) * 4
+        pick = torch.randint(0, k, (qn, m), device="cuda", generator=g)
+        q = cb[torch.arange(m, device="cuda")[None, :], pick].reshape(qn, d)
+        q = q + torch.randn(qn, d, device="cuda", generator=g)
+        lut = pq_ops.build_lut(q, cb)
     codes = torch.randint(0, k, (n, m), device="cuda", generator=g,
                           dtype=torch.int32).to(torch.uint8)
     if frac < 1.0:
@@ -483,10 +495,11 @@ def _adc_case(name, n, *, seed, qn=512, m=16, k=256, d=128, frac=1.0,
 
 def _check_adc(case, adc_ops):
     """The four ADC kernels vs their plain versions on one case; returns
-    ({kernel: max_abs_err}, report). Pool: scores equal to 1e-6 relative
-    (the same f32 additions in the same order), ids equal in bins whose best
-    and second-best differ by more, identical stage-2 pool; scores scan:
-    within 1 bf16 ulp; scans: 1e-6 relative."""
+    ({kernel: max_abs_err}, report). Pool (B3) and precise scan
+    (B5-precise): bit-identical (the same f32 additions in the same order;
+    pool ids equal in every live bin, ties included, -1 in dead bins), and
+    an identical stage-2 pool; scores scan: within 1 bf16 ulp; fast scan:
+    1e-6 relative."""
     import torch
 
     from vectorsearch_torch.ops.exact import pool_topk
@@ -518,16 +531,15 @@ def _check_adc(case, adc_ops):
     torch.cuda.synchronize()
     live = torch.isfinite(ps)
     errs["adc_pool"] = rel_check("pool scores", ks, ps, 1e-6)
+    if not torch.equal(ks, ps) or not torch.equal(ki[live], pi[live]):
+        raise AssertionError(f"{case['name']}: pool differs from its plain version")
     s = torch.where(valid[None, :], -adc_ops._lut_sums(lh, codes), float("-inf"))
     span, ng = fold * tile, w // bins
     s = torch.nn.functional.pad(s, (0, ng * span - n), value=float("-inf"))
     top2 = s.view(qn, ng, span // bins, bins).topk(2, dim=2).values
     del s
     best, second = top2[:, :, 0].reshape(qn, -1), top2[:, :, 1].reshape(qn, -1)
-    gap = torch.nan_to_num(best - second, nan=0.0, posinf=float("inf"))
-    sep = live & (gap > 1e-6 * best.abs())
-    if not torch.equal(ki[sep], pi[sep]):
-        raise AssertionError(f"{case['name']}: separated pool bins differ in id")
+    tied = live & (best == second)
     if not bool(valid[ki[live].long()].all()):
         raise AssertionError(f"{case['name']}: an invalid row won a pool bin")
     if not bool((ki[~live] == -1).all()):
@@ -537,7 +549,7 @@ def _check_adc(case, adc_ops):
     near = _near_ties(pt, 1e-6 * scale)
     if int(((kid != pid) & ~near).sum()):
         raise AssertionError(f"{case['name']}: stage-2 pools differ")
-    notes.append(f"pool W={w} fold={fold} sep_bins={int(sep.sum())}/"
+    notes.append(f"pool W={w} fold={fold} tied_bins={int(tied.sum())}/"
                  f"{int(live.sum())} stage2_equal={int((kid == pid).sum())}/"
                  f"{kid.numel()}")
     # B4: within 1 bf16 ulp
@@ -551,6 +563,8 @@ def _check_adc(case, adc_ops):
     a = adc_ops.adc_scan_precise_cuda(hi, lo, codes, valid)
     b = adc_ops.adc_scan_precise_plain(hi, lo, codes, valid)
     errs["adc_scan_precise"] = rel_check("precise scan", a, b, 1e-6)
+    if not torch.equal(a, b):
+        raise AssertionError(f"{case['name']}: precise scan differs from its plain version")
     torch.cuda.synchronize()
     report = (f"{case['name']}: Q={qn} N={n} M={m} K={k} valid={int(valid.sum())} "
               + " ".join(f"{key}_err={v:.3e}" for key, v in errs.items())
@@ -1172,9 +1186,26 @@ def _bound(bytes_moved, ops, peaks):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def _max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
 def _adc_timings(case, adc_ops, peaks):
     """Kernel, plain, library and bound times of the four ADC kernels on one
-    case. The library yardstick is the XLA formulation's product
+    case -> ({kernel: times}, {kernel: extra}). The extras of B3 and
+    B5-precise (the LINES kernels): the lookup ceiling, the 4-byte bank
+    reads of their Q*N_valid*M lookups at 32 a cycle per SM, at the card's
+    SM count and maximum SM clock (B3 reads two queries' bf16 values a word
+    at 16-query lines, so half a read a lookup; B5-precise one (hi, lo) word
+    a lookup), and the kernel's time on codes equal in every row, where the
+    row groups of a load read one line (no bank conflict). The library
+    yardstick is the XLA formulation's product
     (vectorsearch_tpu/ops/pq.py:182-190): the bf16 LUT [Q, M*K] times a
     prebuilt bf16 one-hot [M*K, N] in one torch.matmul (two for the hi/lo
     planes); the port never calls it."""
@@ -1195,6 +1226,20 @@ def _adc_timings(case, adc_ops, peaks):
     n_valid = int(valid.sum())
     lut_b = qn * m * k * 2
     adds = qn * n_valid * m  # the kernels skip invalid rows
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    read_ms = 1e3 / (32 * sms * _max_sm_clock_hz())  # one bank read a lane
+    same = codes[:1].expand(n, m).contiguous()
+    extra = {
+        "adc_pool": dict(
+            lookup_ceiling_ms=adds / 2 * read_ms,
+            same_codes_ms=_time_ms(lambda: adc_ops.adc_pool_cuda(
+                lh, same, valid, **geom), 20)),
+        "adc_scan_precise": dict(
+            lookup_ceiling_ms=adds * read_ms,
+            same_codes_ms=_time_ms(lambda: adc_ops.adc_scan_precise_cuda(
+                hi, lo, same, valid), 20)),
+    }
+    del same
     out = {}
     for name, kern, plain, lib, nbytes, ops in (
         ("adc_pool", lambda: adc_ops.adc_pool_cuda(lh, codes, valid, **geom),
@@ -1220,7 +1265,7 @@ def _adc_timings(case, adc_ops, peaks):
         )
     del onehot
     torch.cuda.empty_cache()
-    return out
+    return out, extra
 
 
 def _packed_timings(exact_ops, peaks, tag):
@@ -1418,6 +1463,8 @@ def main() -> int:
         _adc_case("ADC tail, ~2% valid, dead bins", 50_123, seed=13, frac=0.02),
         _adc_case("ADC wide LUT (M 64, K 256, D 256)", 100_096, seed=14, m=64,
                   d=256, pad_from=100_000),
+        _adc_case("ADC ties, integer-valued LUT", 100_096, seed=15,
+                  pad_from=100_000, ties=True),
     ]
     for case in adc_cases:
         errs, report = _check_adc(case, adc_ops)
@@ -1609,18 +1656,25 @@ def main() -> int:
         library_ms=library_ms, ms_2seg=two_ms, ms_deep10m_brute=deep_ms,
     )}
     timings["exact_pool_packed"] = _packed_timings(exact_ops, peaks, tag)
-    timings.update(_adc_timings(adc_sift, adc_ops, peaks))
-    small_scores_ms = _time_ms(lambda: adc_ops.adc_scores_cuda(
+    adc_times, adc_extra = _adc_timings(adc_sift, adc_ops, peaks)
+    timings.update(adc_times)
+    small_scores_ms = [_time_ms(lambda: adc_ops.adc_scores_cuda(
         adc_ops.lut_bf16(adc_small["lut"]), adc_small["codes"],
-        adc_small["valid"]), 20)
+        adc_small["valid"]), 20) for _ in range(5)]
     for kname in ("adc_pool", "adc_scores", "adc_scan", "adc_scan_precise"):
         t = timings[kname]
-        _log(f"timing {kname} {tag}: Q 512 x N 100,096 x M 16 x K 256: kernel "
-             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, one-hot "
-             f"torch.matmul {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
-             f"ms ({t['bound_by']})")
-    _log(f"timing adc_scores {tag}: at the small segment (N 10,112) "
-         f"{small_scores_ms:.4f} ms")
+        line = (f"timing {kname} {tag}: Q 512 x N 100,096 x M 16 x K 256: kernel "
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, one-hot "
+                f"torch.matmul {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+                f"ms ({t['bound_by']})")
+        if kname in adc_extra:
+            x = adc_extra[kname]
+            line += (f", lookup ceiling (bank reads) {x['lookup_ceiling_ms']:.4f} "
+                     f"ms, kernel on codes equal in every row "
+                     f"{x['same_codes_ms']:.4f} ms")
+        _log(line)
+    _log(f"timing adc_scores {tag}: at the small segment (N 10,112), five "
+         f"timings: {', '.join(f'{v:.4f}' for v in small_scores_ms)} ms")
 
     # per kernel: the most launches one 512-batch of any path made
     per_batch = {

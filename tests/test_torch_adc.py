@@ -211,3 +211,183 @@ def test_kernel_wrappers_reject_cpu_tensors():
     ):
         with pytest.raises(ValueError, match="CUDA"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# The LINES design of B3 and B5-precise (csrc/adc.cu's header), modelled in
+# plain torch with the header's index arithmetic: line li = m*K + c at byte
+# li*LB, lane j of a row group reads the WB bytes at li*LB + j*WB. B3: G =
+# QL/2 lanes, word j = bf16 of query 2j (low half) | query 2j+1 (high half),
+# WB 4, LB 2*QL; at QL 1 a 2-byte line of the one query. Precise: G = QL
+# lanes, word j = hi of query j (low half) | lo (high half), WB 4, LB 4*QL.
+# (G, WB, LB) come from the wrapper's own ``_line_layout``, which also sizes
+# the kernels' shared memory. These tests hold the documented layout and
+# walk, not the kernel: only the card tests (tests/test_torch_cuda.py) run
+# its index arithmetic.
+
+
+def _line_image(planes, q0, ql, precise):
+    """The shared-memory bytes of one query tile staged as lines, uint8
+    [M*K*LB]; words of queries past the batch hold 0."""
+    qn, m, k = planes[0].shape
+    g, wb, lb = ta._line_layout(ql, precise)
+    bits = [p.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF for p in planes]
+
+    def column(plane, q):  # plane's bf16 bits of query q at every line, or 0
+        if q0 + q < qn:
+            return bits[plane][q0 + q].reshape(-1)
+        return torch.zeros(m * k, dtype=torch.int64)
+
+    img = torch.zeros(m * k * lb, dtype=torch.uint8)
+    li = torch.arange(m * k)
+    for j in range(g):
+        if wb == 2:
+            word = column(0, 0)
+        elif precise:
+            word = column(0, j) | (column(1, j) << 16)
+        else:
+            word = column(0, 2 * j) | (column(0, 2 * j + 1) << 16)
+        for byte in range(wb):
+            img[li * lb + j * wb + byte] = ((word >> (8 * byte)) & 0xFF).to(torch.uint8)
+    return img, g, wb, lb
+
+
+def _line_walk(img, g, wb, lb, codes, k):
+    """Each row's sums as its row group computes them: for lane j, the word
+    at (m*K + codes[r, m])*LB + j*WB, its halves added into two f32 sums in m
+    order -> f32 [N, G, 2] (low-half sum, high-half sum)."""
+    n, m = codes.shape
+    acc = torch.zeros(n, g, 2, dtype=torch.float32)
+    j = torch.arange(g)
+    for mm in range(m):
+        off = (mm * k + codes[:, mm].long())[:, None] * lb + j[None, :] * wb
+        word = torch.zeros(n, g, dtype=torch.int64)
+        for byte in range(wb):
+            word |= img[off + byte].to(torch.int64) << (8 * byte)
+        lo_half = ((word & 0xFFFF) << 16).to(torch.int32).view(torch.float32)
+        hi_half = (word & 0xFFFF0000).to(torch.int32).view(torch.float32)
+        acc[:, :, 0] += lo_half
+        acc[:, :, 1] += hi_half
+    return acc
+
+
+def _line_sums_model(planes, codes, ql, precise):
+    """The per-(query, row) results of the LINES walk over every query tile:
+    B3 f32 [Q, N] sums, precise f32 [Q, N] hi sum + lo sum."""
+    qn, m, k = planes[0].shape
+    out = torch.empty(qn, codes.shape[0], dtype=torch.float32)
+    for q0 in range(0, qn, ql):
+        img, g, wb, lb = _line_image(planes, q0, ql, precise)
+        acc = _line_walk(img, g, wb, lb, codes, k)
+        for q in range(q0, min(qn, q0 + ql)):
+            t = q - q0
+            if precise:
+                out[q] = acc[:, t, 0] + acc[:, t, 1]
+            elif wb == 2:
+                out[q] = acc[:, 0, 0]
+            else:
+                out[q] = acc[:, t // 2, t % 2]
+    return out
+
+
+_LINE_SHAPES = [(16, 256, 16), (12, 100, 8), (64, 256, 4), (16, 256, 1)]
+
+
+@pytest.mark.parametrize("m,k,ql", _LINE_SHAPES)
+@pytest.mark.parametrize("precise", [False, True])
+def test_line_layout_gives_lut_sums_bit_for_bit(rng, m, k, ql, precise):
+    """The documented line layout and row-group walk (a model, not the
+    kernel) give the plain versions' sums bit for bit, over query tiles of
+    which the last is partial (B5-precise lines hold at most 8 queries)."""
+    ql = min(ql, 8) if precise else ql
+    qn, n = 2 * ql + 1, 300
+    lut = torch.from_numpy(rng.random((qn, m, k)).astype(np.float32) * 9)
+    codes = torch.from_numpy(rng.integers(0, k, (n, m)).astype(np.uint8))
+    valid = torch.ones(n, dtype=torch.bool)
+    if precise:
+        hi, lo = ta.lut_hi_lo(lut)
+        got = _line_sums_model([hi, lo], codes, ql, True)
+        want = ta.adc_scan_precise_plain(hi, lo, codes, valid)
+    else:
+        lh = ta.lut_bf16(lut)
+        got = _line_sums_model([lh], codes, ql, False)
+        want = ta._lut_sums(lh, codes)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _pool_walk(sums, valid, *, tile, bins, fold, w):
+    """B3's walk: the row group of pool column (g, b) visits rows g*fold*tile
+    + b + s*bins for s = 0, 1, ... below N, skips invalid ones and keeps a
+    row's negated sum when it is strictly greater -> (f32 [Q, W], i32 [Q, W];
+    -inf / -1 in dead bins)."""
+    qn, n = sums.shape
+    col = torch.arange(w)
+    row0 = (col // bins) * fold * tile + col % bins
+    best = torch.full((qn, w), float("-inf"))
+    rows = torch.full((qn, w), -1, dtype=torch.int32)
+    for s in range(fold * tile // bins):
+        r = row0 + s * bins
+        ok = r < n
+        rc = torch.where(ok, r, 0)
+        ok = ok & valid[rc]
+        sc = -sums[:, rc]
+        upd = ok[None, :] & (sc > best)
+        best = torch.where(upd, sc, best)
+        rows = torch.where(upd, rc.to(torch.int32)[None, :], rows)
+    return best, rows
+
+
+@pytest.mark.parametrize("m,k,ql", _LINE_SHAPES)
+@pytest.mark.parametrize("tile_n,fold", [(None, None), (512, 2)])
+def test_line_pool_walk_keeps_the_tie_rule(rng, m, k, ql, tile_n, fold):
+    """On an integer-valued LUT, where sums tie often, the documented walk
+    of B3 (a model, not the kernel) over the line sums gives bin_argmax's
+    scores and ids: ties go to the smallest row, dead bins score -inf."""
+    qn, n = ql + 3, 2_500
+    lut = torch.from_numpy(rng.integers(0, 3, (qn, m, k)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, k, (n, m)).astype(np.uint8))
+    valid = torch.from_numpy(rng.random(n) < 0.7)
+    valid[:300] = False  # dead bins at fold 2
+    lh = ta.lut_bf16(lut)
+    tile, bins, f, w = ta.pool_geometry(qn, m, k, n, tile_n, fold)
+    sums = _line_sums_model([lh], codes, ql, False)
+    got_s, got_i = _pool_walk(sums, valid, tile=tile, bins=bins, fold=f, w=w)
+    want_s, want_i = ta.adc_pool_plain(lh, codes, valid, tile=tile, bins=bins,
+                                       fold=f, w=w)
+    live = torch.isfinite(want_s)
+    assert torch.equal(got_s, want_s)
+    assert torch.equal(got_i[live], want_i[live])
+    assert bool((got_i[~live] == -1).all())
+    # the data does tie: some bins have two rows at their best score
+    s = torch.where(valid[None, :], -sums, float("-inf"))
+    span = f * tile
+    s = torch.nn.functional.pad(s, (0, w // bins * span - n), value=float("-inf"))
+    top2 = s.view(qn, w // bins, span // bins, bins).topk(2, dim=2).values
+    assert int(((top2[:, :, 0] == top2[:, :, 1]) & torch.isfinite(top2[:, :, 0])).sum()) > 0
+
+
+def test_line_queries():
+    """The LINES kernels' line width: the widest that fits and that the
+    batch fills more than half; a ValueError when one query's lines do
+    not fit."""
+    lq = ta._line_queries
+    # the sift1m segment: 16 queries' bf16 a line (128 KB); B5-precise 8
+    # queries' hi/lo words (128 KB) and its output tiles (36 KB)
+    assert lq("t", 512, 16, 256, False) == 16
+    assert ta._line_smem(16, 16, 256, False) == 131_072
+    assert lq("t", 512, 16, 256, True) == 8
+    assert ta._line_smem(8, 16, 256, True) == 131_072 + 36_864
+    # a wide LUT on narrow lines
+    assert lq("t", 512, 64, 256, False) == 4
+    assert lq("t", 512, 64, 256, True) == 2
+    # small batches: the smallest line that holds them all
+    assert lq("t", 1, 16, 256, False) == lq("t", 1, 16, 256, True) == 1
+    assert lq("t", 9, 12, 100, False) == 16
+    assert lq("t", 9, 12, 100, True) == 8
+    assert lq("t", 3, 16, 256, False) == 4
+    # one query's lines only: B3 reads 2-byte lines, B5-precise 4-byte ones
+    assert lq("t", 512, 256, 256, False) == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        lq("t", 512, 256, 256, True)
+    with pytest.raises(ValueError, match="shared memory"):
+        lq("t", 8, 512, 256, False)

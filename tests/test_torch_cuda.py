@@ -196,11 +196,22 @@ def test_index_on_the_card_matches_the_cpu(cuda, rng):
     np.testing.assert_allclose(gd, cd, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("qn,n,m,k,frac", [
-    (100, 50_123, 16, 256, 0.9), (37, 5000, 12, 100, 0.5), (20, 3000, 64, 256, 1.0),
+@pytest.mark.parametrize("qn,n,m,k,frac,ties", [
+    (100, 50_123, 16, 256, 0.9, False), (37, 5000, 12, 100, 0.5, False),
+    (20, 3000, 64, 256, 1.0, False),
+    # the line widths of B3 and B5-precise: one query (1-query lines), a
+    # tile that is no multiple of the line, a wide LUT on narrow lines
+    (1, 50_123, 16, 256, 0.9, False), (9, 20_123, 12, 100, 0.7, False),
+    (9, 20_123, 64, 256, 0.9, False), (100, 20_123, 64, 256, 0.9, False),
+    (100, 20_123, 12, 100, 0.9, False), (1, 5000, 64, 256, 1.0, False),
+    # an integer-valued LUT: sums tie often, so pool ids hold the tie rule
+    (100, 50_123, 16, 256, 0.9, True), (9, 20_123, 12, 100, 0.7, True),
 ])
-def test_adc_kernels_match_plain(cuda, rng, qn, n, m, k, frac):
-    lut = torch.from_numpy(rng.random((qn, m, k)).astype(np.float32) * 9).to(cuda)
+def test_adc_kernels_match_plain(cuda, rng, qn, n, m, k, frac, ties):
+    if ties:
+        lut = torch.from_numpy(rng.integers(0, 3, (qn, m, k)).astype(np.float32)).to(cuda)
+    else:
+        lut = torch.from_numpy(rng.random((qn, m, k)).astype(np.float32) * 9).to(cuda)
     codes = torch.from_numpy(rng.integers(0, k, (n, m)).astype(np.uint8)).to(cuda)
     valid = torch.from_numpy(rng.random(n) < frac).to(cuda)
     lh = ta.lut_bf16(lut)

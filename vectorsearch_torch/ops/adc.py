@@ -21,6 +21,12 @@ and adds the two sums). The plain versions repeat that arithmetic in the
 same order, so kernel and plain version agree bit for bit; a CPU tensor runs
 the plain version, a CUDA tensor launches the kernel or raises.
 
+Two designs share the source (its header states both): B3 and B5-precise
+stage the LUT query-major as one line per (m, code), read by the 8 lanes
+of a row group together (``_line_queries`` picks the line's width, 16
+queries for B3 and 8 for B5-precise where they fit); B4 and B5-fast stage
+it query by query, one row a thread (``_query_tile``).
+
 The pool's function is the TPU kernel's, so pools compare directly: the
 geometry (tile, bins, fold, W) is the JAX package's, and bin b of group g
 holds the max negated score over the valid rows r with r // (fold*tile) == g
@@ -44,11 +50,16 @@ _BINS = 128  # one 128-wide row of bins per 1024 rows of tile
 # and tiny segments divide into too few bins for a useful pool.
 MIN_ROWS_POOL = 16_384
 
-# The kernels' block: 256 threads and a tile of at most 16 queries whose
-# bf16 LUTs sit in shared memory (227 KB at most per block on Hopper).
+# Shared memory: 227 KB at most per block on Hopper.
+_SMEM_BYTES = 227 * 1024
+# The ROWS kernels' block (B4, B5-fast): 256 threads and a tile of at most
+# 16 queries whose bf16 LUTs sit in shared memory.
 _THREADS = 256
 _QMAX = 16
-_SMEM_BYTES = 227 * 1024
+# The LINES kernels' block (B3, B5-precise): 1024 threads, 32 warps; a
+# B5-precise chunk is 32 rows a warp.
+_LINE_THREADS = 1024
+_LINE_WARPS = _LINE_THREADS // 32
 
 
 # ------------------------------------------------------------ geometry
@@ -122,8 +133,10 @@ def _bind(lib) -> None:
     lib.adc_scan_launch.argtypes = [p, p, p, p] + [i] * 6 + [p]
     lib.adc_scan_precise_launch.argtypes = [p, p, p, p, p] + [i] * 6 + [p]
     lib.adc_init.argtypes = []
+    lib.adc_lines_blocks_per_sm.argtypes = [i, p, i, i, i, ctypes.POINTER(i)]
     for fn in (lib.adc_pool_launch, lib.adc_scores_launch,
-               lib.adc_scan_launch, lib.adc_scan_precise_launch, lib.adc_init):
+               lib.adc_scan_launch, lib.adc_scan_precise_launch, lib.adc_init,
+               lib.adc_lines_blocks_per_sm):
         fn.restype = ctypes.c_int
 
 
@@ -134,6 +147,7 @@ def _load_kernel():
 
 _count_lock = threading.Lock()
 _sm_count: dict[int, int] = {}
+_line_blocks: dict[tuple, int] = {}  # LINES blocks a SM, by device and form
 _ready: set[int] = set()  # devices where adc_init has raised the smem limit
 
 
@@ -194,15 +208,72 @@ def _query_tile(name: str, qn: int, m: int, k: int, planes: int) -> int:
     return qt
 
 
-def _grid_y(dev, qn, qt, items, m, k, planes) -> int:
-    """Blocks along the items (rows or pool columns): about four waves of
-    the card in all, so each block's LUT load is spread over many rows."""
+def _sms(dev) -> int:
     di = _device_index(dev)
     if di not in _sm_count:
         _sm_count[di] = torch.cuda.get_device_properties(di).multi_processor_count
-    per_sm = max(1, min(2048 // _THREADS, _SMEM_BYTES // (planes * qt * m * k * 2)))
-    want = -(-4 * _sm_count[di] * per_sm // -(-qn // qt))
+    return _sm_count[di]
+
+
+def _grid_y(dev, qn, qt, items, m, k) -> int:
+    """The ROWS kernels' blocks along the rows: about four waves of the card
+    in all, so each block's LUT load is spread over many rows."""
+    per_sm = max(1, min(2048 // _THREADS, _SMEM_BYTES // (qt * m * k * 2)))
+    want = -(-4 * _sms(dev) * per_sm // -(-qn // qt))
     return max(1, min(want, -(-items // _THREADS), 65535))
+
+
+def _line_layout(ql: int, precise: bool) -> tuple[int, int, int]:
+    """(G, WB, LB) of a LUT line (``Lines`` in csrc/adc.cu): G lanes a row
+    group, each reading WB bytes of the LB-byte line. B3: one 32-bit word of
+    two queries' bf16 values a lane, and at QL 1 the one query's bf16 (WB
+    2); B5-precise: one query's hi and lo a lane."""
+    g = ql if precise else max(1, ql // 2)
+    wb = 2 if not precise and ql == 1 else 4
+    return g, wb, g * wb
+
+
+def _line_smem(ql: int, m: int, k: int, precise: bool) -> int:
+    """Bytes of a LINES block's shared memory (``line_smem`` in csrc/adc.cu):
+    M*K lines of QL queries, bf16 each (B3) or a hi/lo word each
+    (B5-precise), and B5-precise's [QL x (32 + 32/G)] f32 output tile a
+    warp (none at G 1, whose lanes store their own rows)."""
+    g, _, lb = _line_layout(ql, precise)
+    tiles = _LINE_WARPS * ql * (32 + 32 // g) * 4 if precise and g > 1 else 0
+    return m * k * lb + tiles
+
+
+def _line_queries(name: str, qn: int, m: int, k: int, precise: bool) -> int:
+    """Queries a LUT line of the LINES kernels (B3, B5-precise): the widest
+    power of two (B3 16, B5-precise 8 at most) whose block fits in shared
+    memory and that the batch fills more than half (a batch of Q < 16
+    queries takes the smallest line that holds them all)."""
+    ql = 8 if precise else 16
+    while ql > 1 and (ql >= 2 * qn or _line_smem(ql, m, k, precise) > _SMEM_BYTES):
+        ql //= 2
+    if _line_smem(ql, m, k, precise) > _SMEM_BYTES:
+        raise ValueError(
+            f"{name}: a LUT of M={m} x K={k} "
+            f"({_line_smem(1, m, k, precise)} bytes of lines for one query) "
+            f"does not fit in a block's {_SMEM_BYTES} bytes of shared memory"
+        )
+    return ql
+
+
+def _line_grid(lib, dev, precise: bool, codes, m: int, k: int, ql: int,
+               items: int) -> int:
+    """The LINES kernels' grid: one persistent wave, as many blocks as the
+    card holds at once (the kernel form's occupancy: registers, threads and
+    shared memory), none more than there are (query tile, chunk) items.
+    Asked of the card once per device and form. Runs under
+    ``torch.cuda.device(dev)``, after ``_prepare``."""
+    key = (_device_index(dev), precise, ql, m, k, codes.data_ptr() % 16)
+    if key not in _line_blocks:
+        blocks = ctypes.c_int(0)
+        _launch("adc_lines_blocks_per_sm", lib.adc_lines_blocks_per_sm,
+                int(precise), codes.data_ptr(), m, k, ql, ctypes.byref(blocks))
+        _line_blocks[key] = max(1, blocks.value)
+    return max(1, min(items, _sms(dev) * _line_blocks[key]))
 
 
 def _launch(name, fn, *args):
@@ -246,15 +317,16 @@ def adc_pool_cuda(lut_h, codes, valid, *, tile, bins, fold, w, out=None):
     outi = _output("adc_pool_cuda", outi, (qn, w), torch.int32, dev)
     if qn == 0 or w == 0:
         return outs, outi
-    qt = _query_tile("adc_pool_cuda", qn, m, k, 1)
-    gy = _grid_y(dev, qn, qt, w, m, k, 1)
+    ql = _line_queries("adc_pool_cuda", qn, m, k, False)
+    chunks = -(-w // (_LINE_THREADS // _line_layout(ql, False)[0]))
     lib = _load_kernel()
     with torch.cuda.device(dev):
         _prepare(lib, dev)
+        grid = _line_grid(lib, dev, False, codes, m, k, ql, -(-qn // ql) * chunks)
         _launch("adc_pool_launch", lib.adc_pool_launch,
                 lut_h.data_ptr(), codes.data_ptr(), valid.data_ptr(),
                 outs.data_ptr(), outi.data_ptr(),
-                qn, n, m, k, qt, tile, bins, fold, w, gy,
+                qn, n, m, k, ql, tile, bins, fold, w, grid,
                 torch.cuda.current_stream(dev).cuda_stream)
     _count(adc_pool_cuda)
     return outs, outi
@@ -274,7 +346,7 @@ def adc_scores_cuda(lut_h, codes, valid, out=None):
     if qn == 0 or n_out == 0:
         return out
     qt = _query_tile("adc_scores_cuda", qn, m, k, 1)
-    gy = _grid_y(dev, qn, qt, n_out, m, k, 1)
+    gy = _grid_y(dev, qn, qt, n_out, m, k)
     lib = _load_kernel()
     with torch.cuda.device(dev):
         _prepare(lib, dev)
@@ -298,7 +370,7 @@ def adc_scan_cuda(lut_h, codes, valid):
     if qn == 0 or n == 0:
         return out
     qt = _query_tile("adc_scan_cuda", qn, m, k, 1)
-    gy = _grid_y(dev, qn, qt, n, m, k, 1)
+    gy = _grid_y(dev, qn, qt, n, m, k)
     lib = _load_kernel()
     with torch.cuda.device(dev):
         _prepare(lib, dev)
@@ -322,14 +394,15 @@ def adc_scan_precise_cuda(hi, lo, codes, valid):
     out = torch.empty((qn, n), dtype=torch.float32, device=dev)
     if qn == 0 or n == 0:
         return out
-    qt = _query_tile("adc_scan_precise_cuda", qn, m, k, 2)
-    gy = _grid_y(dev, qn, qt, n, m, k, 2)
+    ql = _line_queries("adc_scan_precise_cuda", qn, m, k, True)
+    chunks = -(-n // (_LINE_WARPS * 32))
     lib = _load_kernel()
     with torch.cuda.device(dev):
         _prepare(lib, dev)
+        grid = _line_grid(lib, dev, True, codes, m, k, ql, -(-qn // ql) * chunks)
         _launch("adc_scan_precise_launch", lib.adc_scan_precise_launch,
                 hi.data_ptr(), lo.data_ptr(), codes.data_ptr(),
-                valid.data_ptr(), out.data_ptr(), qn, n, m, k, qt, gy,
+                valid.data_ptr(), out.data_ptr(), qn, n, m, k, ql, grid,
                 torch.cuda.current_stream(dev).cuda_stream)
     _count(adc_scan_precise_cuda)
     return out
