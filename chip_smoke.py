@@ -10,10 +10,11 @@ result):
 1. environment: the card's name and power limit, the CUDA and nvcc versions;
 2. build: compiles the hand-written kernels (vectorsearch_torch/csrc/*.cu,
    one nvcc per source, all started together) for sm_90a from the checkout,
-   prints each kernel's registers and spills, and counts the warpgroup MMA
-   (HGMMA) instructions in the SASS (cuobjdump) of every instantiation of
-   the exact pools' shared kernel, B1's and B2's: none in any of them, or
-   no instantiation of either, fails;
+   prints each kernel's registers and spills (the ADC kernels one line per
+   form, line width and FULL flag), and counts the warpgroup MMA (HGMMA)
+   instructions in the SASS (cuobjdump) of every instantiation of the exact
+   pools' shared kernel, B1's and B2's: none in any of them, or no
+   instantiation of either, fails;
 3. kernel vs plain on the card:
    - the exact-pool kernel (B1) at every shape a sift1m exact batch gives it
      (Q 512, D 128, L2: the 8-segment group, N 800,768, fold 8; the
@@ -34,9 +35,10 @@ result):
    - the ADC kernels (B3 pool, B4 scores, B5 scan, B5 precise scan) at the
      sift1m segment shape (Q 512, M 16, K 256, N 100,096), a segment under
      16,384 rows (N 10,112), a tail case (N 50,123, ~2% valid rows, dead
-     bins), a wide LUT (M 64, K 256, D 256) and an integer-valued LUT whose
-     sums tie often; B3 and B5-precise bit-identical to their plain
-     versions, pool ids in every live bin included;
+     bins, B4's pad columns), a wide LUT (M 64, K 256, D 256), an
+     integer-valued LUT whose sums tie often and a small batch on narrow
+     lines (Q 9, N 20,123, M 12, K 100); all four bit-identical to their
+     plain versions, pool ids in every live bin included;
 4. end to end on sift1m (1M x 128 clustered rows from seed 42, 10 sealed
    segments of 100k, L2, 512-query batches, k = 10, recall@10 on 128
    held-out queries against float64 ground truth computed on the card):
@@ -63,19 +65,25 @@ result):
      clients query (the longest gap between batch completions); then
      self-recall >= 0.99, no leaked delete, no segment COMPACTING or
      WRITING, and the sources' surviving gids in the new segments;
-   each profile traces five one-client batches and one 8-client window
-   with torch.profiler: wall and device time per batch, the card's busy
-   share, device operations and kernel-launch calls per batch (full tables
-   in _profiles/chip_smoke_profile.txt, git-ignored);
+   each profile traces five one-client batches and (exact, flat, Deep10M)
+   one 8-client window with torch.profiler: wall and device time per batch,
+   the card's busy share, device operations and kernel-launch calls per
+   batch, top kernels (full tables in _profiles/chip_smoke_profile.txt,
+   git-ignored); unified and small-segment flat are profiled over the
+   five one-client batches only;
 5. timings at the sift1m shapes (B2: the Deep10M subgroups' shapes, its
    plain version over 64 queries): each kernel, its plain version, one
    PyTorch call computing the same function where there is one (the library
-   yardstick; the port never calls it) and the card's bound; for B3 and
-   B5-precise also their lookup ceiling (the shared-memory bank reads of
+   yardstick; the port never calls it) and the card's bound; for the four
+   ADC kernels also their lookup ceiling (the shared-memory bank reads of
    their Q*N_valid*M lookups at 32 a cycle per SM, at the card's maximum SM
    clock; logged, not in the kernels line) and their time on codes that
    are the same in every row (every load one line: no bank conflict); B4
-   at its route's N 10,112 five times; for B1 also its
+   at its route's N 10,112 (its figures in the kernels line: kernel and
+   library timed as CUDA graphs of 20 calls, so the host's pace stays out),
+   five host-loop timings there as earlier versions took them, and its
+   chunk candidates side by side (the wrapper's chunk against 1,024
+   columns, in turns); for B1 also its
    useful TFLOP/s, the ceiling of its 3xTF32 form at the TF32 peak, and its
    times at the 2-segment group, the Deep10M brute table and 3,072-feature
    rows (its streamed form, beside torch.matmul); for B2 its useful
@@ -207,6 +215,32 @@ def _packed_flag(name):
     kernel name; None for a name that is no instantiation of it."""
     m = _PACKED_FLAG.search(name)
     return None if m is None else (m.group(1) or m.group(2)) in ("true", "1")
+
+
+_ADC_KERNEL = re.compile(
+    r"adc_(?:pool_lines_kernelILi(\d+)ELb([01])E|scan_lines_kernelILi(\d)ELi(\d+)ELb([01])E)")
+_ADC_FORMS = {"1": "B5-precise", "2": "B5-fast", "3": "B4"}
+
+
+def _adc_ptxas(compiler_out):
+    """One line per ADC kernel instantiation from nvcc's ptxas -v output:
+    its form (B3's pool, or the line-scan kernel's B5-precise, B5-fast or
+    B4), line width, FULL flag (16-byte code loads), registers and spill
+    stores."""
+    lines, name, spill = [], None, "?"
+    for line in compiler_out.splitlines():
+        if "Compiling entry" in line:
+            m = _ADC_KERNEL.search(line)
+            name = None if m is None else (
+                f"B3 QL {m.group(1)} FULL {m.group(2)}" if m.group(1) else
+                f"{_ADC_FORMS[m.group(3)]} QL {m.group(4)} FULL {m.group(5)}")
+        elif name and "spill stores" in line:
+            spill = line.split("bytes spill stores")[0].split(",")[-1].strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = line.split("Used", 1)[1].split("registers")[0].strip()
+            lines.append(f"{name}: {regs} registers, {spill} bytes spill stores")
+            name, spill = None, "?"
+    return sorted(lines)
 
 
 def _warpgroup_mmas(lib_path, kernel):
@@ -495,11 +529,10 @@ def _adc_case(name, n, *, seed, qn=512, m=16, k=256, d=128, frac=1.0,
 
 def _check_adc(case, adc_ops):
     """The four ADC kernels vs their plain versions on one case; returns
-    ({kernel: max_abs_err}, report). Pool (B3) and precise scan
-    (B5-precise): bit-identical (the same f32 additions in the same order;
-    pool ids equal in every live bin, ties included, -1 in dead bins), and
-    an identical stage-2 pool; scores scan: within 1 bf16 ulp; fast scan:
-    1e-6 relative."""
+    ({kernel: max_abs_err}, report). All four bit-identical (the same f32
+    additions in the same order, and B4's one rounding to bf16 at nearest
+    even; pool ids equal in every live bin, ties included, -1 in dead bins;
+    B4's pad columns -inf), and an identical stage-2 pool."""
     import torch
 
     from vectorsearch_torch.ops.exact import pool_topk
@@ -552,19 +585,21 @@ def _check_adc(case, adc_ops):
     notes.append(f"pool W={w} fold={fold} tied_bins={int(tied.sum())}/"
                  f"{int(live.sum())} stage2_equal={int((kid == pid).sum())}/"
                  f"{kid.numel()}")
-    # B4: within 1 bf16 ulp
-    a = adc_ops.adc_scores_cuda(lh, codes, valid)
-    b = adc_ops.adc_scores_plain(lh, codes, valid)
-    errs["adc_scores"] = rel_check("scores", a, b, 2.0 ** -7)
-    notes.append(f"scores width={a.shape[1]} equal={bool(torch.equal(a, b))}")
-    # B5, both forms
-    a = adc_ops.adc_scan_cuda(lh, codes, valid)
-    errs["adc_scan"] = rel_check("scan", a, adc_ops.adc_scan_plain(lh, codes, valid), 1e-6)
-    a = adc_ops.adc_scan_precise_cuda(hi, lo, codes, valid)
-    b = adc_ops.adc_scan_precise_plain(hi, lo, codes, valid)
-    errs["adc_scan_precise"] = rel_check("precise scan", a, b, 1e-6)
-    if not torch.equal(a, b):
-        raise AssertionError(f"{case['name']}: precise scan differs from its plain version")
+    # B4, B5-fast, B5-precise: the line-scan kernel's three forms
+    for key, label, kern, plain, args in (
+        ("adc_scores", "scores", adc_ops.adc_scores_cuda,
+         adc_ops.adc_scores_plain, (lh, codes, valid)),
+        ("adc_scan", "scan", adc_ops.adc_scan_cuda, adc_ops.adc_scan_plain,
+         (lh, codes, valid)),
+        ("adc_scan_precise", "precise scan", adc_ops.adc_scan_precise_cuda,
+         adc_ops.adc_scan_precise_plain, (hi, lo, codes, valid)),
+    ):
+        a, b = kern(*args), plain(*args)
+        errs[key] = rel_check(label, a, b, 0.0)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{case['name']}: {label} differs from its plain version")
+        del a, b
+    notes.append(f"scores width={adc_ops.scores_width(n)}")
     torch.cuda.synchronize()
     report = (f"{case['name']}: Q={qn} N={n} M={m} K={k} valid={int(valid.sum())} "
               + " ".join(f"{key}_err={v:.3e}" for key, v in errs.items())
@@ -809,14 +844,14 @@ def _traced(fn):
     return out, wall, prof.key_averages()
 
 
-def _profile(label, idx, q, params, tag, launches, tables):
-    """Where one path's time goes: five one-client batches and one 8-client
-    window under torch.profiler. Prints per batch the wall time, the device
-    time of all device operations, the card's busy share (device time over
-    wall time), the device operations and the host's kernel-launch calls and
-    their mean time, and the top device operations; appends the full tables
-    to `tables`. These runs are main-path runs and are counted like the
-    others."""
+def _profile(label, idx, q, params, tag, launches, tables, clients=True):
+    """Where one path's time goes: five one-client batches and (`clients`)
+    one 8-client window under torch.profiler. Prints per batch the wall
+    time, the device time of all device operations, the card's busy share
+    (device time over wall time), the device operations and the host's
+    kernel-launch calls and their mean time, and the top device operations;
+    appends the full tables to `tables`. These runs are main-path runs and
+    are counted like the others."""
     import numpy as np
 
     def batches():
@@ -845,6 +880,8 @@ def _profile(label, idx, q, params, tag, launches, tables):
              for e in top))
     tables += [f"== {label}, one client, 5 batches {tag}",
                ka.table(sort_by="self_cpu_time_total", row_limit=25)]
+    if not clients:
+        return
     ((rate, _lo, _hi), wall, ka), _c = launches.run(lambda: _traced(
         lambda: _measure_qps(idx, np.concatenate([q] * 8), 10, params,
                              clients=8, seconds=1.0, windows=3)))
@@ -1196,16 +1233,45 @@ def _max_sm_clock_hz() -> float:
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
-def _adc_timings(case, adc_ops, peaks):
-    """Kernel, plain, library and bound times of the four ADC kernels on one
-    case -> ({kernel: times}, {kernel: extra}). The extras of B3 and
-    B5-precise (the LINES kernels): the lookup ceiling, the 4-byte bank
-    reads of their Q*N_valid*M lookups at 32 a cycle per SM, at the card's
-    SM count and maximum SM clock (B3 reads two queries' bf16 values a word
-    at 16-query lines, so half a read a lookup; B5-precise one (hi, lo) word
-    a lookup), and the kernel's time on codes equal in every row, where the
-    row groups of a load read one line (no bank conflict). The library
-    yardstick is the XLA formulation's product
+def _graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean device time of fn() captured `iters` times in one CUDA graph, by
+    CUDA events over `replays` replays: the launches run back to back, so
+    the host's pace stays out of a short kernel's time."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (replays * iters)
+
+
+_ADC_NAMES = ("adc_pool", "adc_scores", "adc_scan", "adc_scan_precise")
+
+
+def _adc_timings(case, adc_ops, peaks, names=_ADC_NAMES, graph=False):
+    """Kernel, plain, library and bound times of the ADC kernels `names` on
+    one case (kernel and library as CUDA graphs with `graph`) -> ({kernel:
+    times}, {kernel: extra}). The extras: the lookup ceiling, the 4-byte
+    bank reads of the kernel's Q*N_valid*M lookups at 32 a cycle per SM, at
+    the card's SM count and maximum SM clock (B3, B5-fast and B4 read two
+    queries' bf16 values a word at 16-query lines, so half a read a lookup;
+    B5-precise one (hi, lo) word a lookup), and the kernel's time on codes
+    equal in every row, where the row groups of a load read one line (no
+    bank conflict). The library yardstick is the XLA formulation's product
     (vectorsearch_tpu/ops/pq.py:182-190): the bf16 LUT [Q, M*K] times a
     prebuilt bf16 one-hot [M*K, N] in one torch.matmul (two for the hi/lo
     planes); the port never calls it."""
@@ -1229,43 +1295,71 @@ def _adc_timings(case, adc_ops, peaks):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     read_ms = 1e3 / (32 * sms * _max_sm_clock_hz())  # one bank read a lane
     same = codes[:1].expand(n, m).contiguous()
+    kernels = {
+        "adc_pool": lambda c: adc_ops.adc_pool_cuda(lh, c, valid, **geom),
+        "adc_scores": lambda c: adc_ops.adc_scores_cuda(lh, c, valid),
+        "adc_scan": lambda c: adc_ops.adc_scan_cuda(lh, c, valid),
+        "adc_scan_precise": lambda c: adc_ops.adc_scan_precise_cuda(hi, lo, c, valid),
+    }
+    timer = _graph_ms if graph else (lambda fn: _time_ms(fn, 20))
     extra = {
-        "adc_pool": dict(
-            lookup_ceiling_ms=adds / 2 * read_ms,
-            same_codes_ms=_time_ms(lambda: adc_ops.adc_pool_cuda(
-                lh, same, valid, **geom), 20)),
-        "adc_scan_precise": dict(
-            lookup_ceiling_ms=adds * read_ms,
-            same_codes_ms=_time_ms(lambda: adc_ops.adc_scan_precise_cuda(
-                hi, lo, same, valid), 20)),
+        name: dict(
+            lookup_ceiling_ms=adds * read_ms / (1 if name == "adc_scan_precise" else 2),
+            same_codes_ms=timer(lambda: kernels[name](same)))
+        for name in names
     }
     del same
+    plains = {
+        "adc_pool": (lambda: adc_ops.adc_pool_plain(lh, codes, valid, **geom),
+                     lambda: lf @ onehot, n * m + n + lut_b + qn * w * 8, adds),
+        "adc_scores": (lambda: adc_ops.adc_scores_plain(lh, codes, valid),
+                       lambda: lf @ onehot,
+                       n * m + n + lut_b + qn * adc_ops.scores_width(n) * 2, adds),
+        "adc_scan": (lambda: adc_ops.adc_scan_plain(lh, codes, valid),
+                     lambda: lf @ onehot, n * m + n + lut_b + qn * n * 4, adds),
+        "adc_scan_precise": (
+            lambda: adc_ops.adc_scan_precise_plain(hi, lo, codes, valid),
+            lambda: hf @ onehot + lof @ onehot,
+            n * m + n + 2 * lut_b + qn * n * 4, 2 * adds + qn * n_valid),
+    }
     out = {}
-    for name, kern, plain, lib, nbytes, ops in (
-        ("adc_pool", lambda: adc_ops.adc_pool_cuda(lh, codes, valid, **geom),
-         lambda: adc_ops.adc_pool_plain(lh, codes, valid, **geom),
-         lambda: lf @ onehot, n * m + n + lut_b + qn * w * 8, adds),
-        ("adc_scores", lambda: adc_ops.adc_scores_cuda(lh, codes, valid),
-         lambda: adc_ops.adc_scores_plain(lh, codes, valid),
-         lambda: lf @ onehot,
-         n * m + n + lut_b + qn * adc_ops.scores_width(n) * 2, adds),
-        ("adc_scan", lambda: adc_ops.adc_scan_cuda(lh, codes, valid),
-         lambda: adc_ops.adc_scan_plain(lh, codes, valid),
-         lambda: lf @ onehot, n * m + n + lut_b + qn * n * 4, adds),
-        ("adc_scan_precise",
-         lambda: adc_ops.adc_scan_precise_cuda(hi, lo, codes, valid),
-         lambda: adc_ops.adc_scan_precise_plain(hi, lo, codes, valid),
-         lambda: hf @ onehot + lof @ onehot,
-         n * m + n + 2 * lut_b + qn * n * 4, 2 * adds + qn * n_valid),
-    ):
+    for name in names:
+        plain, lib, nbytes, ops = plains[name]
         bound_ms, bound_by = _bound(nbytes, ops, peaks)
         out[name] = dict(
-            ms=_time_ms(kern, 20), plain_ms=_time_ms(plain, 3, 1),
-            library_ms=_time_ms(lib, 10), bound_ms=bound_ms, bound_by=bound_by,
+            ms=timer(lambda: kernels[name](codes)),
+            plain_ms=_time_ms(plain, 3, 1),
+            library_ms=_graph_ms(lib) if graph else _time_ms(lib, 10),
+            bound_ms=bound_ms, bound_by=bound_by,
         )
     del onehot
     torch.cuda.empty_cache()
     return out, extra
+
+
+def _chunk_candidates(case, adc_ops, rounds=3):
+    """B4 on one case with the wrapper's chunk (``_line_chunk``) and with
+    1,024-column chunks, in turns, each as a CUDA graph of 20 calls ->
+    ({chunk columns: [ms, ...]})."""
+    lh = adc_ops.lut_bf16(case["lut"])
+    codes, valid = case["codes"], case["valid"]
+    rule = adc_ops._line_chunk
+    times = {}
+    try:
+        for _ in range(rounds):
+            for fixed in (None, 1024):
+                picked = []
+
+                def chunk(*args, fixed=fixed, picked=picked):
+                    picked.append(fixed or rule(*args))
+                    return picked[-1]
+
+                adc_ops._line_chunk = chunk
+                ms = _graph_ms(lambda: adc_ops.adc_scores_cuda(lh, codes, valid))
+                times.setdefault(picked[-1], []).append(ms)
+    finally:
+        adc_ops._line_chunk = rule
+    return times
 
 
 def _packed_timings(exact_ops, peaks, tag):
@@ -1387,6 +1481,10 @@ def main() -> int:
     built = _build_all()
     for src, (path, compiler_out, secs) in sorted(built.items()):
         _log(f"build {tag}: {os.path.relpath(path, REPO)} in {secs:.1f} s")
+        if src == "adc":  # one line per form, line width and FULL flag
+            for line in _adc_ptxas(compiler_out):
+                _log(f"  ptxas {tag}: {line}")
+            continue
         for line in compiler_out.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 _log("  ptxas: " + line.strip())
@@ -1465,6 +1563,8 @@ def main() -> int:
                   d=256, pad_from=100_000),
         _adc_case("ADC ties, integer-valued LUT", 100_096, seed=15,
                   pad_from=100_000, ties=True),
+        _adc_case("ADC small batch, narrow lines (Q 9, M 12, K 100)", 20_123,
+                  seed=16, qn=9, m=12, k=100, d=96, frac=0.7),
     ]
     for case in adc_cases:
         errs, report = _check_adc(case, adc_ops)
@@ -1558,6 +1658,8 @@ def main() -> int:
             kernel="adc_scan", want_per_batch=10, min_recall=0.85,
             params=flat_params, qps=False,
         )
+        _profile("sift1m unified flat", idx, q, flat_params, tag, launches,
+                 tables, clients=False)
     finally:
         idx.close()
     del idx, storage
@@ -1575,6 +1677,8 @@ def main() -> int:
             kernel="adc_scores", want_per_batch=10, min_recall=0.97,
             params=flat_params, qps=False,
         )
+        _profile("small-segment flat", idx, q, flat_params, tag, launches,
+                 tables, clients=False)
     finally:
         idx.close()
     del idx, x, xs
@@ -1658,23 +1762,39 @@ def main() -> int:
     timings["exact_pool_packed"] = _packed_timings(exact_ops, peaks, tag)
     adc_times, adc_extra = _adc_timings(adc_sift, adc_ops, peaks)
     timings.update(adc_times)
+    for kname in _ADC_NAMES:
+        t, x = timings[kname], adc_extra[kname]
+        _log(f"timing {kname} {tag}: Q 512 x N 100,096 x M 16 x K 256: kernel "
+             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, one-hot "
+             f"torch.matmul {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+             f"ms ({t['bound_by']}), lookup ceiling (bank reads) "
+             f"{x['lookup_ceiling_ms']:.4f} ms, kernel on codes equal in every "
+             f"row {x['same_codes_ms']:.4f} ms")
+    # B4 at its route (a segment under 16,384 rows): its figures in the
+    # kernels line, the sift1m segment's beside them
+    route, route_extra = _adc_timings(adc_small, adc_ops, peaks,
+                                      names=("adc_scores",), graph=True)
+    t, x = route["adc_scores"], route_extra["adc_scores"]
+    _log(f"timing adc_scores {tag}: at its route, Q 512 x N 10,112 x M 16 x K "
+         f"256, CUDA graphs of 20 calls: kernel {t['ms']:.4f} ms, plain "
+         f"{t['plain_ms']:.4f} ms, one-hot torch.matmul {t['library_ms']:.4f} "
+         f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), lookup ceiling "
+         f"(bank reads) {x['lookup_ceiling_ms']:.4f} ms, kernel on codes equal "
+         f"in every row {x['same_codes_ms']:.4f} ms")
+    timings["adc_scores"] = dict(t, **{
+        f"{key}_sift_segment": v for key, v in adc_times["adc_scores"].items()
+        if key != "bound_by"})
     small_scores_ms = [_time_ms(lambda: adc_ops.adc_scores_cuda(
         adc_ops.lut_bf16(adc_small["lut"]), adc_small["codes"],
         adc_small["valid"]), 20) for _ in range(5)]
-    for kname in ("adc_pool", "adc_scores", "adc_scan", "adc_scan_precise"):
-        t = timings[kname]
-        line = (f"timing {kname} {tag}: Q 512 x N 100,096 x M 16 x K 256: kernel "
-                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, one-hot "
-                f"torch.matmul {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
-                f"ms ({t['bound_by']})")
-        if kname in adc_extra:
-            x = adc_extra[kname]
-            line += (f", lookup ceiling (bank reads) {x['lookup_ceiling_ms']:.4f} "
-                     f"ms, kernel on codes equal in every row "
-                     f"{x['same_codes_ms']:.4f} ms")
-        _log(line)
     _log(f"timing adc_scores {tag}: at the small segment (N 10,112), five "
-         f"timings: {', '.join(f'{v:.4f}' for v in small_scores_ms)} ms")
+         f"host-loop timings (the LUT to bf16, then the kernel): "
+         f"{', '.join(f'{v:.4f}' for v in small_scores_ms)} ms")
+    cands = _chunk_candidates(adc_small, adc_ops)
+    _log(f"timing adc_scores {tag}: chunk candidates at N 10,112 in turns, "
+         f"CUDA graphs of 20 calls: " + "; ".join(
+             f"{cols:,} columns {', '.join(f'{v:.4f}' for v in ms)} ms"
+             for cols, ms in cands.items()))
 
     # per kernel: the most launches one 512-batch of any path made
     per_batch = {

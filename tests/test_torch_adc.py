@@ -190,15 +190,6 @@ def test_use_fused_gating_is_shape_only():
     assert ta.use_fused_adc_pool(ta.MIN_ROWS_POOL, 128)
 
 
-def test_wide_lut_query_tile():
-    assert ta._query_tile("t", 512, 16, 256, 1) == 16
-    assert ta._query_tile("t", 512, 16, 256, 2) == 14  # two planes
-    assert ta._query_tile("t", 512, 64, 256, 1) == 7
-    assert ta._query_tile("t", 3, 16, 256, 1) == 3
-    with pytest.raises(ValueError, match="shared memory"):
-        ta._query_tile("t", 8, 512, 256, 1)
-
-
 def test_kernel_wrappers_reject_cpu_tensors():
     lut = torch.zeros(2, 4, 16, dtype=torch.bfloat16)
     codes = torch.zeros(300, 4, dtype=torch.uint8)
@@ -214,23 +205,27 @@ def test_kernel_wrappers_reject_cpu_tensors():
 
 
 # ---------------------------------------------------------------------------
-# The LINES design of B3 and B5-precise (csrc/adc.cu's header), modelled in
-# plain torch with the header's index arithmetic: line li = m*K + c at byte
-# li*LB, lane j of a row group reads the WB bytes at li*LB + j*WB. B3: G =
-# QL/2 lanes, word j = bf16 of query 2j (low half) | query 2j+1 (high half),
-# WB 4, LB 2*QL; at QL 1 a 2-byte line of the one query. Precise: G = QL
-# lanes, word j = hi of query j (low half) | lo (high half), WB 4, LB 4*QL.
-# (G, WB, LB) come from the wrapper's own ``_line_layout``, which also sizes
-# the kernels' shared memory. These tests hold the documented layout and
-# walk, not the kernel: only the card tests (tests/test_torch_cuda.py) run
-# its index arithmetic.
+# The LINES design of the four ADC kernels (csrc/adc.cu's header), modelled
+# in plain torch with the header's index arithmetic: line li = m*K + c at
+# byte li*LB, lane j of a row group reads the WB bytes at li*LB + j*WB. B3,
+# B5-fast and B4: G = QL/2 lanes, word j = bf16 of query 2j (low half) |
+# query 2j+1 (high half), WB 4, LB 2*QL; at QL 1 a 2-byte line of the one
+# query. B5-precise: G = QL lanes, word j = hi of query j (low half) | lo
+# (high half), WB 4, LB 4*QL. (G, WB, LB), the scans' output-tile stride and
+# their chunk come from the wrapper's own ``_line_layout``, ``_tile_stride``
+# and ``_line_chunk``, which also size and drive the kernels. These tests
+# hold the documented layout and walk, not the kernel: only the card tests
+# (tests/test_torch_cuda.py) run its index arithmetic.
+
+_FORMS = {"pool": ta._POOL, "precise": ta._PRECISE, "fast": ta._FAST,
+          "scores": ta._SCORES}
 
 
-def _line_image(planes, q0, ql, precise):
+def _line_image(planes, q0, ql, form):
     """The shared-memory bytes of one query tile staged as lines, uint8
     [M*K*LB]; words of queries past the batch hold 0."""
     qn, m, k = planes[0].shape
-    g, wb, lb = ta._line_layout(ql, precise)
+    g, wb, lb = ta._line_layout(ql, form)
     bits = [p.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF for p in planes]
 
     def column(plane, q):  # plane's bf16 bits of query q at every line, or 0
@@ -243,7 +238,7 @@ def _line_image(planes, q0, ql, precise):
     for j in range(g):
         if wb == 2:
             word = column(0, 0)
-        elif precise:
+        elif form == ta._PRECISE:
             word = column(0, j) | (column(1, j) << 16)
         else:
             word = column(0, 2 * j) | (column(0, 2 * j + 1) << 16)
@@ -276,8 +271,9 @@ def _line_sums_model(planes, codes, ql, precise):
     B3 f32 [Q, N] sums, precise f32 [Q, N] hi sum + lo sum."""
     qn, m, k = planes[0].shape
     out = torch.empty(qn, codes.shape[0], dtype=torch.float32)
+    form = ta._PRECISE if precise else ta._POOL
     for q0 in range(0, qn, ql):
-        img, g, wb, lb = _line_image(planes, q0, ql, precise)
+        img, g, wb, lb = _line_image(planes, q0, ql, form)
         acc = _line_walk(img, g, wb, lb, codes, k)
         for q in range(q0, min(qn, q0 + ql)):
             t = q - q0
@@ -366,28 +362,175 @@ def test_line_pool_walk_keeps_the_tie_rule(rng, m, k, ql, tile_n, fold):
     assert int(((top2[:, :, 0] == top2[:, :, 1]) & torch.isfinite(top2[:, :, 0])).sum()) > 0
 
 
-def test_line_queries():
-    """The LINES kernels' line width: the widest that fits and that the
-    batch fills more than half; a ValueError when one query's lines do
-    not fit."""
-    lq = ta._line_queries
+# (Q, M, K) -> line width of (B3, B5-precise, B5-fast, B4); None: a
+# ValueError (one query's lines do not fit)
+_WIDTHS = {
     # the sift1m segment: 16 queries' bf16 a line (128 KB); B5-precise 8
-    # queries' hi/lo words (128 KB) and its output tiles (36 KB)
-    assert lq("t", 512, 16, 256, False) == 16
-    assert ta._line_smem(16, 16, 256, False) == 131_072
-    assert lq("t", 512, 16, 256, True) == 8
-    assert ta._line_smem(8, 16, 256, True) == 131_072 + 36_864
+    # queries' hi/lo words (128 KB)
+    (512, 16, 256): (16, 8, 16, 16),
+    # the scans' output tiles count: at M 24 16-query lines (192 KB) leave
+    # room for B4's bf16 tiles (34 KB), not for B5-fast's f32 ones (68 KB)
+    (512, 24, 256): (16, 4, 8, 16),
     # a wide LUT on narrow lines
-    assert lq("t", 512, 64, 256, False) == 4
-    assert lq("t", 512, 64, 256, True) == 2
+    (512, 64, 256): (4, 2, 4, 4),
     # small batches: the smallest line that holds them all
-    assert lq("t", 1, 16, 256, False) == lq("t", 1, 16, 256, True) == 1
-    assert lq("t", 9, 12, 100, False) == 16
-    assert lq("t", 9, 12, 100, True) == 8
-    assert lq("t", 3, 16, 256, False) == 4
-    # one query's lines only: B3 reads 2-byte lines, B5-precise 4-byte ones
-    assert lq("t", 512, 256, 256, False) == 1
-    with pytest.raises(ValueError, match="shared memory"):
-        lq("t", 512, 256, 256, True)
-    with pytest.raises(ValueError, match="shared memory"):
-        lq("t", 8, 512, 256, False)
+    (1, 16, 256): (1, 1, 1, 1),
+    (9, 12, 100): (16, 8, 16, 16),
+    (3, 16, 256): (4, 4, 4, 4),
+    # one query's lines only: 2-byte lines (no output tile at G 1), and
+    # B5-precise's 4-byte ones do not fit
+    (512, 256, 256): (1, None, 1, 1),
+    (8, 512, 256): (None, None, None, None),
+}
+# bytes of a block at the sift1m segment's width: 128 KB of lines, and the
+# scans' [QL x stride] output tiles of 32 warps
+_SMEM_SIFT = {"pool": 131_072, "precise": 131_072 + 32 * 8 * 36 * 4,
+              "fast": 131_072 + 32 * 16 * 34 * 4, "scores": 131_072 + 32 * 16 * 34 * 2}
+
+
+@pytest.mark.parametrize("form", list(_FORMS))
+def test_line_queries(form):
+    """The kernels' line width, per form: the widest that fits with the
+    form's output tiles and that the batch fills more than half; a
+    ValueError when one query's lines do not fit."""
+    f = _FORMS[form]
+    col = list(_FORMS).index(form)
+    for (qn, m, k), widths in _WIDTHS.items():
+        want = widths[col]
+        if want is None:
+            with pytest.raises(ValueError, match="shared memory"):
+                ta._line_queries("t", qn, m, k, f)
+        else:
+            assert ta._line_queries("t", qn, m, k, f) == want, (qn, m, k)
+            assert ta._line_smem(want, m, k, f) <= ta._SMEM_BYTES
+    ql = _WIDTHS[(512, 16, 256)][col]
+    assert ta._line_smem(ql, 16, 256, f) == _SMEM_SIFT[form]
+
+
+def _no_bank_conflict(addr, elem):
+    """The element offsets one store instruction of a warp writes (one a
+    lane) hit distinct 4-byte banks, lanes that share a word aside."""
+    words = torch.unique(addr * elem // 4)
+    assert len(torch.unique(words % 32)) == len(words), addr.tolist()
+
+
+def _scan_model(planes, codes, valid, ql, form):
+    """The line-scan kernel's documented walk and output tiles (a model, not
+    the kernel): for each query tile and 32-column slice, G steps in which
+    row group g of lane j takes row base + s*RGW + g, stores its queries'
+    values (B5-fast the sums, B4 bf16 of the negated sums, B5-precise hi +
+    lo; +inf, B4 -inf, at invalid rows and B4's pad columns) at element
+    q*stride + s*RGW + g of its warp's tile, every store free of bank
+    conflicts; then each query's 32 columns copied out as a line. At G 1 a
+    lane is a row and stores its values directly."""
+    qn, m, k = planes[0].shape
+    n = codes.shape[0]
+    scores = form == ta._SCORES
+    w = ta.scores_width(n) if scores else n
+    g, wb, lb = ta._line_layout(ql, form)
+    rgw, stride = 32 // g, ta._tile_stride(ql, form)
+    dtype = torch.bfloat16 if scores else torch.float32
+    elem = 2 if scores else 4
+    dead = float("-inf") if scores else float("inf")
+    per_lane = 2 if form != ta._PRECISE and wb == 4 else 1  # queries a lane
+    out = torch.full((qn, w), float("nan"), dtype=dtype)  # NaN: never written
+    lane = torch.arange(32)
+    j, grp = lane % g, lane // g
+    for q0 in range(0, qn, ql):
+        nq = min(ql, qn - q0)
+        img, *_ = _line_image(planes, q0, ql, form)
+        acc = _line_walk(img, g, wb, lb, codes, k)  # [N, G, 2]
+        for base in range(0, w, 32):
+            tile = torch.full((ql * stride,), float("nan"), dtype=dtype)
+            for s in range(g):
+                rr = s * rgw + grp
+                r = base + rr
+                rc = r.clamp(max=n - 1)
+                ok = (r < n) & valid[rc]
+                a = acc[rc, j]
+                if form == ta._PRECISE:
+                    vals = [a[:, 0] + a[:, 1]]
+                else:
+                    vals = [-a[:, 0], -a[:, 1]] if scores else [a[:, 0], a[:, 1]]
+                for i in range(per_lane):
+                    v = torch.where(ok, vals[i], dead).to(dtype)
+                    q = per_lane * j + i
+                    if g == 1:
+                        keep = (r < w) & (q < nq)
+                        out[q0 + q[keep], r[keep]] = v[keep]
+                    else:
+                        addr = q * stride + rr
+                        _no_bank_conflict(addr, elem)
+                        tile[addr] = v
+            if g > 1:
+                keep = base + lane < w
+                _no_bank_conflict(lane, elem)
+                for q in range(nq):
+                    out[q0 + q, (base + lane)[keep]] = tile[q * stride + lane[keep]]
+    return out
+
+
+@pytest.mark.parametrize("m,k,ql", _LINE_SHAPES)
+@pytest.mark.parametrize("form", ["fast", "scores", "precise"])
+def test_line_scan_outputs_match_plain_bit_for_bit(rng, m, k, ql, form):
+    """The documented line walk and output-tile layout of the line-scan
+    kernel (a model, not the kernel) give B5-fast's, B4's and B5-precise's
+    plain outputs bit for bit, invalid rows and B4's pad columns included,
+    over query tiles of which the last is partial."""
+    f = _FORMS[form]
+    ql = min(ql, 8) if f == ta._PRECISE else ql
+    qn, n = 2 * ql + 1, 300
+    lut = torch.from_numpy(rng.random((qn, m, k)).astype(np.float32) * 9)
+    codes = torch.from_numpy(rng.integers(0, k, (n, m)).astype(np.uint8))
+    valid = torch.from_numpy(rng.random(n) > 0.2)
+    if f == ta._PRECISE:
+        planes = list(ta.lut_hi_lo(lut))
+        want = ta.adc_scan_precise_plain(*planes, codes, valid)
+    else:
+        planes = [ta.lut_bf16(lut)]
+        plain = ta.adc_scores_plain if f == ta._SCORES else ta.adc_scan_plain
+        want = plain(planes[0], codes, valid)
+    got = _scan_model(planes, codes, valid, ql, f)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    bits = torch.int16 if f == ta._SCORES else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+    if f == ta._SCORES:
+        assert bool(torch.isneginf(got[:, n:].float()).all())  # pad columns
+
+
+@pytest.mark.parametrize("width,qn,ql,chunk,max_stages", [
+    # B4's route (a segment under 16,384 rows): each tile split over the
+    # blocks it gets, one LUT staged a block
+    (10_112, 512, 16, 2_528, 1),
+    # the sift1m segment: 1024-column chunks, at most two LUTs a block
+    (100_096, 512, 16, 1_024, 2),
+    (100_096, 512, 8, 1_024, 2),
+    # one query tile, and more tiles than the wave holds blocks
+    (20_123, 9, 16, 160, 1),
+    (50_123, 4096, 16, 1_024, 3),
+])
+def test_line_chunk_items_cover_every_slice_once(width, qn, ql, chunk,
+                                                 max_stages):
+    """The scans' persistent walk (csrc/adc.cu ``Items``) over a 132-SM
+    wave with ``_line_chunk``'s chunk: every block takes its share of the
+    (query tile, chunk) items in order, its warps the chunk's 32-column
+    slices 32 apart; every slice of every tile is taken once, and no block
+    stages more LUTs than stated."""
+    blocks, tiles = 132, -(-qn // ql)
+    assert ta._line_chunk(width, tiles, blocks) == chunk
+    chunks = -(-width // chunk)
+    items = tiles * chunks
+    grid = min(items, blocks)
+    seen = torch.zeros(tiles, -(-width // 32), dtype=torch.int32)
+    stages = []
+    for b in range(grid):
+        staged = set()
+        for it in range(items * b // grid, items * (b + 1) // grid):
+            t, c = divmod(it, chunks)
+            staged.add(t)
+            # warp w takes the chunk's slices first + w, first + w + 32, ...
+            first, end = c * chunk // 32, -(-min((c + 1) * chunk, width) // 32)
+            seen[t, first:end] += 1
+        stages.append(len(staged))
+    assert bool((seen == 1).all())
+    assert max(stages) <= max_stages

@@ -206,6 +206,9 @@ def test_index_on_the_card_matches_the_cpu(cuda, rng):
     (100, 20_123, 12, 100, 0.9, False), (1, 5000, 64, 256, 1.0, False),
     # an integer-valued LUT: sums tie often, so pool ids hold the tie rule
     (100, 50_123, 16, 256, 0.9, True), (9, 20_123, 12, 100, 0.7, True),
+    # B4's route: a 512-query batch over a segment under 16,384 rows (its
+    # scans split each query tile's columns over the blocks it gets)
+    (512, 10_112, 16, 256, 0.99, False),
 ])
 def test_adc_kernels_match_plain(cuda, rng, qn, n, m, k, frac, ties):
     if ties:

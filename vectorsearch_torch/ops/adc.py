@@ -21,11 +21,15 @@ and adds the two sums). The plain versions repeat that arithmetic in the
 same order, so kernel and plain version agree bit for bit; a CPU tensor runs
 the plain version, a CUDA tensor launches the kernel or raises.
 
-Two designs share the source (its header states both): B3 and B5-precise
-stage the LUT query-major as one line per (m, code), read by the 8 lanes
-of a row group together (``_line_queries`` picks the line's width, 16
-queries for B3 and 8 for B5-precise where they fit); B4 and B5-fast stage
-it query by query, one row a thread (``_query_tile``).
+One design serves all four (the source's header states it): a block stages
+a tile of queries' LUT query-major, one line per (m, code), read by the
+lanes of a row group together. The pool is one kernel (form ``_POOL``); the
+three scans are forms of one line-scan kernel (``_FAST``, ``_SCORES``,
+``_PRECISE``) that stage each warp's outputs in a shared-memory tile and
+write each query's columns as whole lines. ``_line_queries`` picks the
+line's width (16 queries, 8 for the precise scan, narrower for wide LUTs
+and small batches), ``_line_chunk`` the rows (output columns) of a scan's
+work item.
 
 The pool's function is the TPU kernel's, so pools compare directly: the
 geometry (tile, bins, fold, W) is the JAX package's, and bin b of group g
@@ -52,14 +56,13 @@ MIN_ROWS_POOL = 16_384
 
 # Shared memory: 227 KB at most per block on Hopper.
 _SMEM_BYTES = 227 * 1024
-# The ROWS kernels' block (B4, B5-fast): 256 threads and a tile of at most
-# 16 queries whose bf16 LUTs sit in shared memory.
-_THREADS = 256
-_QMAX = 16
-# The LINES kernels' block (B3, B5-precise): 1024 threads, 32 warps; a
-# B5-precise chunk is 32 rows a warp.
+# The kernels' block: 1024 threads, 32 warps; a scan warp takes 32 columns
+# at a time, a block 1024.
 _LINE_THREADS = 1024
 _LINE_WARPS = _LINE_THREADS // 32
+# The kernel forms (``Form`` in csrc/adc.cu): B3's pool, and the line-scan
+# kernel's B5-precise, B5-fast and B4 forms.
+_POOL, _PRECISE, _FAST, _SCORES = 0, 1, 2, 3
 
 
 # ------------------------------------------------------------ geometry
@@ -129,9 +132,9 @@ def lut_hi_lo(lut: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.adc_pool_launch.argtypes = [p, p, p, p, p] + [i] * 10 + [p]
-    lib.adc_scores_launch.argtypes = [p, p, p, p] + [i] * 7 + [p]
-    lib.adc_scan_launch.argtypes = [p, p, p, p] + [i] * 6 + [p]
-    lib.adc_scan_precise_launch.argtypes = [p, p, p, p, p] + [i] * 6 + [p]
+    lib.adc_scores_launch.argtypes = [p, p, p, p] + [i] * 8 + [p]
+    lib.adc_scan_launch.argtypes = [p, p, p, p] + [i] * 7 + [p]
+    lib.adc_scan_precise_launch.argtypes = [p, p, p, p, p] + [i] * 7 + [p]
     lib.adc_init.argtypes = []
     lib.adc_lines_blocks_per_sm.argtypes = [i, p, i, i, i, ctypes.POINTER(i)]
     for fn in (lib.adc_pool_launch, lib.adc_scores_launch,
@@ -147,7 +150,7 @@ def _load_kernel():
 
 _count_lock = threading.Lock()
 _sm_count: dict[int, int] = {}
-_line_blocks: dict[tuple, int] = {}  # LINES blocks a SM, by device and form
+_line_blocks_per_sm: dict[tuple, int] = {}  # by device and kernel form
 _ready: set[int] = set()  # devices where adc_init has raised the smem limit
 
 
@@ -195,19 +198,6 @@ def _check(name, codes, valid, planes):
     return qn, n, m, k
 
 
-def _query_tile(name: str, qn: int, m: int, k: int, planes: int) -> int:
-    """Queries per block: as many as fit their bf16 LUT planes in shared
-    memory, at most 16."""
-    per_query = planes * m * k * 2
-    qt = min(_QMAX, qn, _SMEM_BYTES // per_query)
-    if qt < 1:
-        raise ValueError(
-            f"{name}: a LUT of M={m} x K={k} ({per_query} bytes per query) "
-            f"does not fit in a block's {_SMEM_BYTES} bytes of shared memory"
-        )
-    return qt
-
-
 def _sms(dev) -> int:
     di = _device_index(dev)
     if di not in _sm_count:
@@ -215,65 +205,84 @@ def _sms(dev) -> int:
     return _sm_count[di]
 
 
-def _grid_y(dev, qn, qt, items, m, k) -> int:
-    """The ROWS kernels' blocks along the rows: about four waves of the card
-    in all, so each block's LUT load is spread over many rows."""
-    per_sm = max(1, min(2048 // _THREADS, _SMEM_BYTES // (qt * m * k * 2)))
-    want = -(-4 * _sms(dev) * per_sm // -(-qn // qt))
-    return max(1, min(want, -(-items // _THREADS), 65535))
-
-
-def _line_layout(ql: int, precise: bool) -> tuple[int, int, int]:
+def _line_layout(ql: int, form: int) -> tuple[int, int, int]:
     """(G, WB, LB) of a LUT line (``Lines`` in csrc/adc.cu): G lanes a row
-    group, each reading WB bytes of the LB-byte line. B3: one 32-bit word of
-    two queries' bf16 values a lane, and at QL 1 the one query's bf16 (WB
-    2); B5-precise: one query's hi and lo a lane."""
-    g = ql if precise else max(1, ql // 2)
-    wb = 2 if not precise and ql == 1 else 4
+    group, each reading WB bytes of the LB-byte line. One 32-bit word of two
+    queries' bf16 values a lane, and at QL 1 the one query's bf16 (WB 2);
+    B5-precise: one query's hi and lo a lane."""
+    g = ql if form == _PRECISE else max(1, ql // 2)
+    wb = 2 if form != _PRECISE and ql == 1 else 4
     return g, wb, g * wb
 
 
-def _line_smem(ql: int, m: int, k: int, precise: bool) -> int:
-    """Bytes of a LINES block's shared memory (``line_smem`` in csrc/adc.cu):
-    M*K lines of QL queries, bf16 each (B3) or a hi/lo word each
-    (B5-precise), and B5-precise's [QL x (32 + 32/G)] f32 output tile a
-    warp (none at G 1, whose lanes store their own rows)."""
-    g, _, lb = _line_layout(ql, precise)
-    tiles = _LINE_WARPS * ql * (32 + 32 // g) * 4 if precise and g > 1 else 0
+def _tile_stride(ql: int, form: int) -> int:
+    """Elements a row of a scan warp's output tile (``ScanTile`` in
+    csrc/adc.cu): 32 columns and a pad of RGW/2 (two queries a lane) or RGW
+    (B5-precise, one query a lane), RGW = 32/G, so that a warp's 32 stores
+    fall in distinct banks."""
+    rgw = 32 // _line_layout(ql, form)[0]
+    return 32 + (rgw if form == _PRECISE else rgw // 2)
+
+
+def _line_smem(ql: int, m: int, k: int, form: int) -> int:
+    """Bytes of a block's shared memory (``line_smem`` in csrc/adc.cu): M*K
+    lines of QL queries, bf16 each or B5-precise's hi/lo word each, and for
+    the scans a [QL x _tile_stride] output tile a warp (f32; bf16 for B4;
+    none at G 1, whose lanes store their own rows)."""
+    g, _, lb = _line_layout(ql, form)
+    tiles = 0
+    if form != _POOL and g > 1:
+        elem = 2 if form == _SCORES else 4
+        tiles = _LINE_WARPS * ql * _tile_stride(ql, form) * elem
     return m * k * lb + tiles
 
 
-def _line_queries(name: str, qn: int, m: int, k: int, precise: bool) -> int:
-    """Queries a LUT line of the LINES kernels (B3, B5-precise): the widest
-    power of two (B3 16, B5-precise 8 at most) whose block fits in shared
-    memory and that the batch fills more than half (a batch of Q < 16
-    queries takes the smallest line that holds them all)."""
-    ql = 8 if precise else 16
-    while ql > 1 and (ql >= 2 * qn or _line_smem(ql, m, k, precise) > _SMEM_BYTES):
+def _line_queries(name: str, qn: int, m: int, k: int, form: int) -> int:
+    """Queries a LUT line: the widest power of two (16, B5-precise 8 at
+    most) whose block fits in shared memory and that the batch fills more
+    than half (a batch of Q < 16 queries takes the smallest line that holds
+    them all)."""
+    ql = 8 if form == _PRECISE else 16
+    while ql > 1 and (ql >= 2 * qn or _line_smem(ql, m, k, form) > _SMEM_BYTES):
         ql //= 2
-    if _line_smem(ql, m, k, precise) > _SMEM_BYTES:
+    if _line_smem(ql, m, k, form) > _SMEM_BYTES:
         raise ValueError(
             f"{name}: a LUT of M={m} x K={k} "
-            f"({_line_smem(1, m, k, precise)} bytes of lines for one query) "
+            f"({_line_smem(1, m, k, form)} bytes of lines for one query) "
             f"does not fit in a block's {_SMEM_BYTES} bytes of shared memory"
         )
     return ql
 
 
-def _line_grid(lib, dev, precise: bool, codes, m: int, k: int, ql: int,
-               items: int) -> int:
-    """The LINES kernels' grid: one persistent wave, as many blocks as the
-    card holds at once (the kernel form's occupancy: registers, threads and
-    shared memory), none more than there are (query tile, chunk) items.
-    Asked of the card once per device and form. Runs under
+def _line_blocks(lib, dev, form: int, codes, m: int, k: int, ql: int) -> int:
+    """Blocks of the form's kernel the card holds at once (its occupancy:
+    registers, threads and shared memory, times the SMs): the persistent
+    wave, of which a launch takes no more blocks than it has items. Asked
+    of the card once per device and form. Runs under
     ``torch.cuda.device(dev)``, after ``_prepare``."""
-    key = (_device_index(dev), precise, ql, m, k, codes.data_ptr() % 16)
-    if key not in _line_blocks:
+    key = (_device_index(dev), form, ql, m, k, codes.data_ptr() % 16)
+    if key not in _line_blocks_per_sm:
         blocks = ctypes.c_int(0)
         _launch("adc_lines_blocks_per_sm", lib.adc_lines_blocks_per_sm,
-                int(precise), codes.data_ptr(), m, k, ql, ctypes.byref(blocks))
-        _line_blocks[key] = max(1, blocks.value)
-    return max(1, min(items, _sms(dev) * _line_blocks[key]))
+                form, codes.data_ptr(), m, k, ql, ctypes.byref(blocks))
+        _line_blocks_per_sm[key] = max(1, blocks.value)
+    return _sms(dev) * _line_blocks_per_sm[key]
+
+
+def _line_chunk(width: int, tiles: int, blocks: int) -> int:
+    """Columns of a scan's (query tile, chunk) item, a multiple of 32. A
+    1024-column chunk is one round of the block's 32 warps; with items in
+    order over the wave a block may stage two tiles' LUTs. Where the tiles
+    fit the wave, splitting each tile's columns evenly over the blocks one
+    tile gets gives every block one item, one stage: taken when that costs
+    no more rounds of 1024 columns on the busiest block."""
+    rounds = -(-tiles * -(-width // 1024) // blocks)
+    per_tile = blocks // tiles
+    if per_tile >= 1:
+        split = 32 * -(-width // (32 * per_tile))
+        if -(-split // 1024) <= rounds:
+            return split
+    return 1024
 
 
 def _launch(name, fn, *args):
@@ -317,12 +326,13 @@ def adc_pool_cuda(lut_h, codes, valid, *, tile, bins, fold, w, out=None):
     outi = _output("adc_pool_cuda", outi, (qn, w), torch.int32, dev)
     if qn == 0 or w == 0:
         return outs, outi
-    ql = _line_queries("adc_pool_cuda", qn, m, k, False)
-    chunks = -(-w // (_LINE_THREADS // _line_layout(ql, False)[0]))
+    ql = _line_queries("adc_pool_cuda", qn, m, k, _POOL)
+    chunks = -(-w // (_LINE_THREADS // _line_layout(ql, _POOL)[0]))
     lib = _load_kernel()
     with torch.cuda.device(dev):
         _prepare(lib, dev)
-        grid = _line_grid(lib, dev, False, codes, m, k, ql, -(-qn // ql) * chunks)
+        grid = min(-(-qn // ql) * chunks,
+                   _line_blocks(lib, dev, _POOL, codes, m, k, ql))
         _launch("adc_pool_launch", lib.adc_pool_launch,
                 lut_h.data_ptr(), codes.data_ptr(), valid.data_ptr(),
                 outs.data_ptr(), outi.data_ptr(),
@@ -335,27 +345,42 @@ def adc_pool_cuda(lut_h, codes, valid, *, tile, bins, fold, w, out=None):
 adc_pool_cuda.launches = 0
 
 
+def _scan_lines(wrapper, form, entry, planes, codes, valid, out=None):
+    """Launches the line-scan kernel's `form` through the library entry
+    `entry` (named as the C function) and counts it on `wrapper`: planes
+    [lut] or B5-precise's [hi, lo] -> f32[Q, N], B4 bf16[Q, scores_width(N)],
+    written into ``out`` when given."""
+    name = wrapper.__name__
+    qn, n, m, k = _check(name, codes, valid, planes)
+    dev = codes.device
+    scores = form == _SCORES
+    w = scores_width(n) if scores else n
+    out = _output(name, out, (qn, w), torch.bfloat16 if scores else torch.float32,
+                  dev)
+    if qn == 0 or w == 0:
+        return out
+    ql = _line_queries(name, qn, m, k, form)
+    tiles = -(-qn // ql)
+    lib = _load_kernel()
+    with torch.cuda.device(dev):
+        _prepare(lib, dev)
+        blocks = _line_blocks(lib, dev, form, codes, m, k, ql)
+        chunk = _line_chunk(w, tiles, blocks)
+        grid = min(tiles * -(-w // chunk), blocks)
+        args = [t.data_ptr() for t in (*planes, codes, valid, out)]
+        shape = [qn, n, m, k] + ([w] if scores else [])
+        _launch(entry, getattr(lib, entry), *args, *shape, ql, chunk, grid,
+                torch.cuda.current_stream(dev).cuda_stream)
+    _count(wrapper)
+    return out
+
+
 def adc_scores_cuda(lut_h, codes, valid, out=None):
     """B4 on the card: -> negated scores bf16[Q, N_pad] (N_pad =
     scores_width(N)), -inf at invalid rows and pad columns, written into
     ``out`` when given. ``adc_scores_cuda.launches`` counts the launches."""
-    qn, n, m, k = _check("adc_scores_cuda", codes, valid, [lut_h])
-    dev = codes.device
-    n_out = scores_width(n)
-    out = _output("adc_scores_cuda", out, (qn, n_out), torch.bfloat16, dev)
-    if qn == 0 or n_out == 0:
-        return out
-    qt = _query_tile("adc_scores_cuda", qn, m, k, 1)
-    gy = _grid_y(dev, qn, qt, n_out, m, k)
-    lib = _load_kernel()
-    with torch.cuda.device(dev):
-        _prepare(lib, dev)
-        _launch("adc_scores_launch", lib.adc_scores_launch,
-                lut_h.data_ptr(), codes.data_ptr(), valid.data_ptr(),
-                out.data_ptr(), qn, n, m, k, qt, n_out, gy,
-                torch.cuda.current_stream(dev).cuda_stream)
-    _count(adc_scores_cuda)
-    return out
+    return _scan_lines(adc_scores_cuda, _SCORES, "adc_scores_launch", [lut_h],
+                       codes, valid, out)
 
 
 adc_scores_cuda.launches = 0
@@ -364,22 +389,8 @@ adc_scores_cuda.launches = 0
 def adc_scan_cuda(lut_h, codes, valid):
     """B5 (one bf16 pass) on the card: -> ADC distances f32[Q, N], +inf at
     invalid rows. ``adc_scan_cuda.launches`` counts the launches."""
-    qn, n, m, k = _check("adc_scan_cuda", codes, valid, [lut_h])
-    dev = codes.device
-    out = torch.empty((qn, n), dtype=torch.float32, device=dev)
-    if qn == 0 or n == 0:
-        return out
-    qt = _query_tile("adc_scan_cuda", qn, m, k, 1)
-    gy = _grid_y(dev, qn, qt, n, m, k)
-    lib = _load_kernel()
-    with torch.cuda.device(dev):
-        _prepare(lib, dev)
-        _launch("adc_scan_launch", lib.adc_scan_launch,
-                lut_h.data_ptr(), codes.data_ptr(), valid.data_ptr(),
-                out.data_ptr(), qn, n, m, k, qt, gy,
-                torch.cuda.current_stream(dev).cuda_stream)
-    _count(adc_scan_cuda)
-    return out
+    return _scan_lines(adc_scan_cuda, _FAST, "adc_scan_launch", [lut_h], codes,
+                       valid)
 
 
 adc_scan_cuda.launches = 0
@@ -389,23 +400,8 @@ def adc_scan_precise_cuda(hi, lo, codes, valid):
     """B5 (hi/lo bf16 planes) on the card: -> ADC distances f32[Q, N],
     +inf at invalid rows. ``adc_scan_precise_cuda.launches`` counts the
     launches."""
-    qn, n, m, k = _check("adc_scan_precise_cuda", codes, valid, [hi, lo])
-    dev = codes.device
-    out = torch.empty((qn, n), dtype=torch.float32, device=dev)
-    if qn == 0 or n == 0:
-        return out
-    ql = _line_queries("adc_scan_precise_cuda", qn, m, k, True)
-    chunks = -(-n // (_LINE_WARPS * 32))
-    lib = _load_kernel()
-    with torch.cuda.device(dev):
-        _prepare(lib, dev)
-        grid = _line_grid(lib, dev, True, codes, m, k, ql, -(-qn // ql) * chunks)
-        _launch("adc_scan_precise_launch", lib.adc_scan_precise_launch,
-                hi.data_ptr(), lo.data_ptr(), codes.data_ptr(),
-                valid.data_ptr(), out.data_ptr(), qn, n, m, k, ql, grid,
-                torch.cuda.current_stream(dev).cuda_stream)
-    _count(adc_scan_precise_cuda)
-    return out
+    return _scan_lines(adc_scan_precise_cuda, _PRECISE,
+                       "adc_scan_precise_launch", [hi, lo], codes, valid)
 
 
 adc_scan_precise_cuda.launches = 0
