@@ -45,15 +45,33 @@ result):
    - exact mode (skip_for_exact): recall >= 0.99, B1 launches per batch, the
      brute route with a 20,000-row ACTIVE segment, serving QPS with 8 client
      threads and one batch's latency, and a profile (below);
-   - flat mode (PQ M 16 x K 256 trained at seal on the card,
-     skip_for_flat, bench.py's SearchParams): per-segment pools through B3
-     (10 launches per batch), recall >= 0.97, true distances, QPS with 8
-     clients and with 1, latency, and a profile;
+   - flat mode, the all-defaults config (PQ M 16 x K 256 trained and the
+     graph built at seal on the card: degree 32, breadth 64, alpha 1.2,
+     bench.py's values; each seal's PQ and graph seconds, every adjacency
+     checked: no self edge, ids < cap_pad, an edge on every live row, mean
+     filled degree logged; bench.py's SearchParams): per-segment pools
+     through B3 (10 launches per batch), recall >= 0.97, true distances,
+     QPS with 8 clients and with 1, latency, and a profile;
    - unified flat: the same sealed segments reopened with
      unified_search=True, through B5 (10 launches per batch), recall >= 0.85
      (one ef_buf of 256 spans 800k rows by design);
-   - small-segment flat: 100,000 rows in 10,000-row segments, through B4
-     (10 launches per batch), recall >= 0.97;
+   - graph mode: the same seals reopened with sealed_search_mode="graph"
+     (BEST_FIRST, ef 150, beam 128, max_explore 150): graph_expand on the
+     card equal to its CPU run on one segment's graph and tie-free ranks of
+     its scan, pools holding rows past the seeds; per segment a B5-fast
+     scan (10 launches per batch), seeds, the traversal and the exact
+     re-rank, recall >= 0.95, one-client QPS, latency, the traversal's
+     steps per batch and a profile; one batch each of BEAM (max_iters 6)
+     and RANDOM_PIVOTS at recall >= 0.95; unified_search=True graph mode at
+     recall >= 0.6566, the JAX package's reading on the same rows (0.6766,
+     tests/test_torch_graph_sift1m.py) less 0.02 (B5-fast 10 times a
+     batch);
+   - the graph build's fused kNN route (segments of 262,144 rows or more):
+     4 blocks of 512 rows over the first 300,000 sift1m rows through
+     _knn_block_fused (B1 once a block, counted) against _knn_block on the
+     same blocks, mean top-64 overlap >= 0.98, each route's time a block;
+   - small-segment flat: 100,000 rows in 10,000-row segments (with their
+     graphs), through B4 (10 launches per batch), recall >= 0.97;
    - Deep10M under churn (bench.py's bench_deep10m in exact mode: 10M x 96
      unit rows from seed 42 in 1M-row segments, vacuum at a deleted ratio
      of 0.1 with a 5 s cooldown, one build and one maintenance worker):
@@ -69,8 +87,8 @@ result):
    one 8-client window with torch.profiler: wall and device time per batch,
    the card's busy share, device operations and kernel-launch calls per
    batch, top kernels (full tables in _profiles/chip_smoke_profile.txt,
-   git-ignored); unified and small-segment flat are profiled over the
-   five one-client batches only;
+   git-ignored); unified flat, graph and small-segment flat are profiled
+   over the five one-client batches only;
 5. timings at the sift1m shapes (B2: the Deep10M subgroups' shapes, its
    plain version over 64 queries): each kernel, its plain version, one
    PyTorch call computing the same function where there is one (the library
@@ -627,11 +645,17 @@ def _sift1m_data():
 
 
 def _open_index(tvs, storage, mode, seg_size, **kw):
+    """bench.py's sift1m index (bench.py:76-89, 212-230): PQ 16 x 256,
+    graph degree 32, breadth 64, alpha 1.2. Flat is the all-defaults
+    config (PQ and a graph at seal); graph serves the same seals by
+    traversal."""
     modes = dict(
         exact=dict(sealed_search_mode="exact", graph_build_mode="skip_for_flat",
                    pq_build_mode="skip_for_exact"),
-        flat=dict(sealed_search_mode="flat", graph_build_mode="skip_for_flat",
+        flat=dict(sealed_search_mode="flat", graph_build_mode="always",
                   pq_build_mode="always"),
+        graph=dict(sealed_search_mode="graph", graph_build_mode="always",
+                   pq_build_mode="always"),
     )[mode]
     return tvs.VectorIndex.create_or_open(tvs.VectorIndexConfig(
         storage=storage, name="sift1m", dimension=128, metric="L2",
@@ -640,9 +664,10 @@ def _open_index(tvs, storage, mode, seg_size, **kw):
     ))
 
 
-def _build(tvs, x, storage, mode, seg_size):
-    """Adds x and seals every full segment (PQ trained on the card in flat
-    mode); returns (index, gids, seconds)."""
+def _build(tvs, x, storage, mode, seg_size, seal_s=None):
+    """Adds x and seals every full segment (PQ trained and the graph built
+    on the card in flat mode); returns (index, gids, seconds). ``seal_s``,
+    when given, collects each seal's seconds."""
     import numpy as np
     import torch
 
@@ -653,10 +678,64 @@ def _build(tvs, x, storage, mode, seg_size):
         claim = idx.build_queue.await_and_claim(timeout=1)
         if claim is None:
             break
+        t_seal = time.perf_counter()
         idx.build_service.build(claim.payload.seg_id)
+        torch.cuda.synchronize()
+        if seal_s is not None:
+            seal_s.append(time.perf_counter() - t_seal)
         claim.complete()
     torch.cuda.synchronize()
     return idx, np.asarray(gids), time.time() - t0
+
+
+class _GraphBuildTimer:
+    """Times every ops/graph.build_graph call the seals make (synchronized
+    on both sides), to split a seal into its PQ and graph parts."""
+
+    def __init__(self):
+        from vectorsearch_torch.ops import graph as graph_ops
+
+        self.mod, self.orig, self.seconds = graph_ops, graph_ops.build_graph, []
+
+    def __enter__(self):
+        import torch
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        self.mod.build_graph = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.build_graph = self.orig
+
+
+def _check_graphs(segs, degree):
+    """Each sealed adjacency: `degree` columns, no self edge, ids inside the
+    segment's rows, every live row with at least one edge. Returns the mean
+    filled degree of the live rows."""
+    import numpy as np
+
+    filled = []
+    for seg in segs:
+        adj = seg.adjacency_np
+        if adj.shape != (seg.cap_pad, degree):
+            raise AssertionError(f"segment {seg.seg_id}: adjacency {adj.shape}")
+        rows = adj[: seg.next_row]
+        if (rows == np.arange(seg.next_row)[:, None]).any():
+            raise AssertionError(f"segment {seg.seg_id}: a self edge")
+        if (adj >= seg.cap_pad).any():
+            raise AssertionError(f"segment {seg.seg_id}: an id past cap_pad")
+        live = seg.alive_np[: seg.next_row]
+        if not (rows[live] >= 0).any(axis=1).all():
+            raise AssertionError(f"segment {seg.seg_id}: a live row without edges")
+        filled.append((rows[live] >= 0).sum(axis=1).mean())
+    return float(np.mean(filled))
 
 
 def _ground_truth(x, q, k, chunk=1_000_000):
@@ -891,6 +970,212 @@ def _profile(label, idx, q, params, tag, launches, tables, clients=True):
          f"busy {dev_s / wall:.3f}, kernel-launch calls {call_us:.1f} us each")
     tables += [f"== {label}, 8 clients {tag}",
                ka.table(sort_by="self_cpu_time_total", row_limit=25)]
+
+
+# --------------------------------------------- phase 4c: graph mode
+
+
+def _traversal_check(idx, q, params, tag):
+    """graph_expand on the card against the same call on the CPU (whose
+    result tests/test_torch_traversal.py holds equal to the JAX package's),
+    on the first segment's graph and this batch's B5-fast scan of it made
+    tie-free (each row's distance replaced by its rank, ties broken by row
+    id), with the served ef, beam and step settings: identical candidate
+    ids and distances, the same number of steps, and pools that hold rows
+    that are not seeds (the expansion found them). Its scan is not counted
+    as a launch of the main path."""
+    import torch
+
+    from vectorsearch_torch.core import index as core_index
+    from vectorsearch_torch.ops import pq as pq_ops
+    from vectorsearch_torch.ops import traversal as traversal_ops
+
+    seg = min((s for s in idx.store.snapshot_segments()
+               if s.state.value == "SEALED"), key=lambda s: s.seg_id)
+    snap = seg.flat_snapshot()
+    qd = torch.from_numpy(q).cuda()
+    approx = pq_ops.adc_scan_auto(
+        pq_ops.build_lut(qd, idx.caches.get_codebook(seg)), snap.codes,
+        snap.exists)
+    qn, n = approx.shape
+    order = torch.argsort(approx, dim=1, stable=True)
+    rank = torch.empty_like(approx).scatter_(
+        1, order, torch.arange(n, dtype=torch.float32, device="cuda").expand(qn, n))
+    rank = torch.where(torch.isfinite(approx), rank, float("inf"))
+    del approx, order
+    ef, beam = idx._auto_tune(seg, 10, params)
+    ef_buf = min(core_index._bucket(max(ef, 10)), seg.cap_pad)
+    beam_buf = min(core_index._bucket(beam, lo=8), ef_buf)
+    walk = core_index._walk(params, ef_buf)
+    seed_idx, seed_d = core_index._seeds(rank, beam_buf)
+    adjacency = idx.caches.get_adjacency(seg)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        traversal_ops.graph_expand.steps = 0
+        t0 = time.perf_counter()
+        ids, dist = traversal_ops.graph_expand(
+            rank.to(dev), adjacency.to(dev), snap.exists.to(dev),
+            seed_idx.to(dev), seed_d.to(dev), ef, beam, ef_buf=ef_buf,
+            beam_buf=beam_buf, **walk)
+        ids, dist = ids.cpu(), dist.cpu()
+        out[dev] = (ids, dist, traversal_ops.graph_expand.steps,
+                    time.perf_counter() - t0)
+    (gi, gd, gs, gt), (ci, cd, cs, ct) = out["cuda"], out["cpu"]
+    seeds = seed_idx.cpu()
+    found = (gi >= 0) & ~(gi[:, :, None] == seeds[:, None, :]).any(dim=2)
+    per_q = found.sum(dim=1).float()
+    same = torch.equal(gi, ci) and torch.equal(gd, cd)
+    _log(f"sift1m graph traversal check {tag}: segment {seg.seg_id}, Q {qn}, "
+         f"N {n:,}, ef {ef} (buffer {ef_buf}), beam {beam} (buffer "
+         f"{beam_buf}), tie-free ranks: card == CPU {same}, steps card {gs} / "
+         f"CPU {cs}, rows found past the seeds per query mean "
+         f"{per_q.mean().item():.1f} min {per_q.min().item():.0f}; card "
+         f"{gt * 1e3:.1f} ms, CPU {ct * 1e3:.1f} ms")
+    if not same or gs != cs:
+        raise AssertionError("sift1m graph: graph_expand on the card differs "
+                             "from the CPU's on tie-free inputs")
+    if gs < 1 or per_q.mean().item() <= 0:
+        raise AssertionError("sift1m graph: the traversal found no row "
+                             "past its seeds")
+    return {"same": same, "steps": gs, "found_mean": per_q.mean().item()}
+
+
+def _graph_phase(tvs, traversal_ops, storage, x, q, gids, truth, tag,
+                 launches, tables, params):
+    """Graph mode over phase 4b's seals: bench.py's SearchParams (BEST_FIRST,
+    ef 150, beam 128, max_explore 150), B5-fast 10 times a batch, recall@10
+    >= 0.95; one-client QPS, latency and profile with the traversal's steps
+    a batch; one batch each of BEAM (max_iters 6) and RANDOM_PIVOTS at
+    >= 0.95; then unified_search=True at the JAX package's reading less
+    0.02. The recall gates alone cannot catch a broken traversal (the
+    seeds' re-rank alone reads about flat's recall), so graph_expand is
+    held to its CPU result first (``_traversal_check``). Returns what it
+    read."""
+    import numpy as np
+
+    out = {}
+    t0 = time.time()
+    idx = _open_index(tvs, storage, "graph", 100_000)
+    try:
+        _log(f"sift1m graph {tag}: reopened in {time.time() - t0:.1f} s")
+        out["traversal"] = _traversal_check(idx, q, params, tag)
+        out["counts"], out["recall"] = _serve_checks(
+            "sift1m graph", idx, x, q, gids, truth, tag, launches,
+            kernel="adc_scan", want_per_batch=10, min_recall=0.95,
+            params=params, qps=False,
+        )
+        (rate, lo, hi), _c = launches.run(lambda: _measure_qps(
+            idx, np.concatenate([q] * 8), 10, params, clients=1))
+        _log(f"sift1m graph serving {tag}: {rate:.1f} QPS median of 4 windows "
+             f"[{lo:.1f}, {hi:.1f}], 1 client, 512-query batches, k=10")
+        steps = []
+        for b in range(3):
+            traversal_ops.graph_expand.steps = 0
+            launches.run(lambda: idx.query_batch_arrays(
+                q + np.float32(b * 1e-6), 10, params))
+            steps.append(traversal_ops.graph_expand.steps)
+        out["steps"] = steps
+        _log(f"sift1m graph {tag}: graph_expand steps per 512-batch (10 "
+             f"segments) {steps}; adjacency rows on the card "
+             f"{idx.get_adjacency_cache_size():,}")
+        _profile("sift1m graph", idx, q, params, tag, launches, tables,
+                 clients=False)
+        for label, p, key in (
+            ("BEAM", tvs.SearchParams(ef_search=150, beam_width=128,
+                                      max_iters=6, max_explore=150,
+                                      mode=tvs.Mode.BEAM), "beam_recall"),
+            ("RANDOM_PIVOTS", params.replace(
+                seed_strategy=tvs.SeedStrategy.RANDOM_PIVOTS), "pivots_recall"),
+        ):
+            t0 = time.perf_counter()
+            (got, _s, dists), c = launches.run(
+                lambda: idx.query_batch_arrays(q[:128], 10, p))
+            secs = time.perf_counter() - t0
+            if got.shape != (128, 10) or not np.isfinite(dists).all():
+                raise AssertionError(f"sift1m graph {label}: malformed results")
+            out[key] = _recall(got, truth, gids)
+            _log(f"sift1m graph {label} {tag}: recall@10 {out[key]:.4f} on 128 "
+                 f"queries, one batch {secs * 1e3:.1f} ms, launches {c}")
+            if out[key] < 0.95:
+                raise AssertionError(f"sift1m graph {label}: recall@10 "
+                                     f"{out[key]} < 0.95")
+    finally:
+        idx.close()
+    del idx
+    # One ef of 150 over a whole subgroup: the JAX package reads 0.6766 on
+    # these seals' rows (tests/test_torch_graph_sift1m.py, the CPU), so the
+    # route is held to that reading less 0.02 (codebooks trained apart)
+    idx = _open_index(tvs, storage, "graph", 100_000, unified_search=True)
+    try:
+        out["unified_counts"], out["unified_recall"] = _serve_checks(
+            "sift1m unified graph", idx, x, q, gids, truth, tag, launches,
+            kernel="adc_scan", want_per_batch=10, min_recall=0.6766 - 0.02,
+            params=params, qps=False,
+        )
+    finally:
+        idx.close()
+    return out
+
+
+def _knn_phase(x, tag, launches):
+    """The fused kNN route of the graph build against the plain one on four
+    512-row blocks of the first 300,000 rows: mean overlap of the top-64
+    candidate sets >= 0.98; B1 once a block. Returns what it read."""
+    import numpy as np
+    import torch
+
+    from vectorsearch_torch.ops import graph as graph_ops
+
+    n, l = 300_000, 64
+    xd = torch.from_numpy(np.ascontiguousarray(x[:n])).cuda()
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    ids = torch.arange(n, dtype=torch.int32, device="cuda")
+    ef = max(128, 1 << l.bit_length())
+    xn2 = torch.sum(xd * xd, dim=1)
+    if not graph_ops._use_fused_knn(n):
+        raise AssertionError("knn: 300,000 rows should take the fused route")
+    starts = [0, 75_008, 150_016, 299_488]
+    fused, fused_s = [], []
+
+    def run_fused():
+        for s0 in starts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fused.append(graph_ops._knn_block_fused(
+                xd[s0 : s0 + 512], ids[s0 : s0 + 512], xd, valid, l, ef,
+                xn2=xn2)[0])
+            torch.cuda.synchronize()
+            fused_s.append(time.perf_counter() - t0)
+
+    _o, c = launches.run(run_fused)
+    plain, plain_s = [], []
+    for s0 in starts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain.append(graph_ops._knn_block(
+            xd[s0 : s0 + 512], ids[s0 : s0 + 512], xd, valid, l)[0])
+        torch.cuda.synchronize()
+        plain_s.append(time.perf_counter() - t0)
+    overlap = float(np.mean([
+        len(set(a) & set(b)) / l
+        for f, p in zip(fused, plain)
+        for a, b in zip(f.cpu().numpy().tolist(), p.cpu().numpy().tolist())
+    ]))
+    fmed, pmed = statistics.median(fused_s[1:]), statistics.median(plain_s[1:])
+    _log(f"knn route {tag}: N 300,000 x 128, 4 blocks of 512 rows, l 64, ef "
+         f"{ef}: B1 launches {c['exact_pool']}, mean top-64 overlap with the "
+         f"plain route {overlap:.4f}; per block (median of the last 3) fused "
+         f"{fmed * 1e3:.2f} ms ({512 / fmed:,.0f} rows/s), plain "
+         f"{pmed * 1e3:.2f} ms ({512 / pmed:,.0f} rows/s); first blocks "
+         f"{fused_s[0] * 1e3:.2f} / {plain_s[0] * 1e3:.2f} ms")
+    if c["exact_pool"] != 4:
+        raise AssertionError(f"knn route: {c['exact_pool']} B1 launches, expected 4")
+    if overlap < 0.98:
+        raise AssertionError(f"knn route: overlap {overlap} < 0.98")
+    del xd, valid, ids, xn2
+    torch.cuda.empty_cache()
+    return {"launches": c["exact_pool"], "overlap": overlap,
+            "fused_ms": fmed * 1e3, "plain_ms": pmed * 1e3}
 
 
 # -------------------------------------------------- phase 4e: Deep10M
@@ -1621,17 +1906,29 @@ def main() -> int:
     del idx
     torch.cuda.empty_cache()
 
-    # 4b. flat mode, per-segment pools (B3)
+    # 4b. flat mode, per-segment pools (B3): the all-defaults config, so
+    # every seal trains PQ and builds the graph on the card
     storage = tvs.MemoryStorage()
-    idx, gids, build_s = _build(tvs, x, storage, "flat", 100_000)
+    seal_s: list[float] = []
+    with _GraphBuildTimer() as graph_timer:
+        idx, gids, build_s = _build(tvs, x, storage, "flat", 100_000, seal_s)
     try:
         segs = idx.store.snapshot_segments()
         sealed = [s for s in segs if s.state.value == "SEALED"]
         if len(sealed) != 10 or sealed[0].codes_np.shape[1] != 16:
             raise AssertionError("sift1m flat: expected 10 PQ-sealed segments")
+        if len(graph_timer.seconds) != 10:
+            raise AssertionError("sift1m flat: expected 10 graph builds")
+        mean_degree = _check_graphs(sealed, 32)
         _log(f"sift1m flat index {tag}: 1,000,000 x 128, {len(segs)} "
-             f"segments, build+seal {build_s:.1f} s (10 PQ trainings of "
-             f"M 16 x K 256, 5 iterations, and encodings on the card)")
+             f"segments, add + build+seal {build_s:.1f} s; each seal (PQ "
+             f"M 16 x K 256, 5 iterations, and encoding, then the graph: "
+             f"degree 32, breadth 64, alpha 1.2, on the card), PQ / graph "
+             f"seconds: " + ", ".join(
+                 f"{t - g:.2f} / {g:.2f}"
+                 for t, g in zip(seal_s, graph_timer.seconds))
+             + f"; adjacency checked (no self edge, ids < cap_pad, every "
+             f"live row with an edge), mean filled degree {mean_degree:.2f}")
         flat_counts, flat_recall = _serve_checks(
             "sift1m flat", idx, x, q, gids, truth, tag, launches,
             kernel="adc_pool", want_per_batch=10, min_recall=0.97,
@@ -1662,8 +1959,21 @@ def main() -> int:
                  tables, clients=False)
     finally:
         idx.close()
-    del idx, storage
+    del idx
     torch.cuda.empty_cache()
+
+    # 4c-graph. graph mode: the same seals reopened (nothing trained or
+    # built again), per segment a B5-fast scan, seeds, the traversal and
+    # the exact re-rank; then BEAM, RANDOM_PIVOTS and the unified graph
+    graph = _graph_phase(tvs, traversal_ops, storage, x, q, gids, truth, tag,
+                         launches, tables, flat_params)
+    del storage
+    torch.cuda.empty_cache()
+
+    # 4c-knn. the graph build's fused kNN route (segments of 262,144 rows
+    # or more): 4 blocks of 512 rows over the first 300,000 sift1m rows
+    # through _knn_block_fused (B1) against _knn_block on the same blocks
+    knn = _knn_phase(x, tag, launches)
 
     # 4d. small-segment flat: 100,000 rows in 10,000-row segments (B4)
     xs = np.ascontiguousarray(x[:100_000])
@@ -1694,6 +2004,8 @@ def main() -> int:
                   "adc_scan"):
         if launches.total[kname] < 1:
             raise AssertionError(f"{kname} was not launched on the main path")
+    if graph["counts"]["adc_scan"] != 10 or knn["launches"] != 4:
+        raise AssertionError("the graph routes did not launch B5-fast / B1")
     _log(f"main path launches {tag}: {launches.total}")
     out_dir = os.path.join(REPO, "_profiles")
     os.makedirs(out_dir, exist_ok=True)
@@ -1799,7 +2111,8 @@ def main() -> int:
     # per kernel: the most launches one 512-batch of any path made
     per_batch = {
         kname: max(c[kname] for c in (exact_counts, flat_counts,
-                                      unified_counts, small_counts,
+                                      unified_counts, graph["counts"],
+                                      graph["unified_counts"], small_counts,
                                       deep["per_batch"]))
         for kname, _s, _r in _KERNELS
     }
@@ -1816,9 +2129,14 @@ def main() -> int:
             **timings[kname],
         })
     entries[0]["brute_launches"] = brute_launches
+    entries[0]["knn_route_launches"] = knn["launches"]
     entries[1]["max_level_diff"] = max_level_diff
+    entries[4]["graph_launches_per_batch"] = graph["counts"]["adc_scan"]
     _log(f"recall@10 {tag}: exact {exact_recall:.4f}, flat {flat_recall:.4f}, "
-         f"unified flat {unified_recall:.4f}, small-segment flat "
+         f"unified flat {unified_recall:.4f}, graph {graph['recall']:.4f} "
+         f"(BEAM {graph['beam_recall']:.4f}, RANDOM_PIVOTS "
+         f"{graph['pivots_recall']:.4f}, unified graph "
+         f"{graph['unified_recall']:.4f}), small-segment flat "
          f"{small_recall:.4f}, deep10m exact {deep['recall']:.4f} (self-recall "
          f"after churn {deep['self_recall']:.4f}); deep10m QPS "
          f"{deep['qps']:.1f} idle, {deep['churn_qps']:.1f} under churn; whole "

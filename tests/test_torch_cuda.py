@@ -1,7 +1,9 @@
 """On the card only (marker ``cuda``; skips without one): the hand-written
 exact-pool (two-plane and packed) and ADC kernels against their plain
-PyTorch versions, and small
-exact and flat indexes on the card against the same indexes on the CPU. Run on a machine with a card
+PyTorch versions, small
+exact, flat and graph indexes on the card against the same indexes on the
+CPU, the graph build and its fused kNN route (B1) and the traversal on the
+card. Run on a machine with a card
 (``--noconftest``: tests/conftest.py sets up JAX, which this file does not
 need and such a machine may not have):
 
@@ -17,7 +19,10 @@ plain versions (the same f32 additions in the same order). Packed pool
 tests/test_torch_exact_packed.py holds the argument on the CPU):
 quantized levels within 1 step, dead bins in the same places, and the same
 slot in all but a few bins (a raw near-tie inside a tile, or two tiles on
-one step, may resolve apart).
+one step, may resolve apart). Graph build: edge sets overlapping >= 0.99
+with the CPU's (the card's full-f32 products sum in another order, which
+can flip a RobustPrune comparison that sits within rounding of its bound).
+Traversal: identical to the CPU's on tie-free inputs.
 """
 
 import numpy as np
@@ -347,3 +352,113 @@ def test_global_worker_seals_flat_with_pq_on_the_card(cuda):
         assert list(got[:, 0]) == list(gids[:4])
     finally:
         producer.close()
+
+
+def _edges(adj):
+    return {(i, int(j)) for i, row in enumerate(adj) for j in row if j >= 0}
+
+
+def test_graph_build_on_the_card_matches_the_cpu(cuda, rng):
+    from vectorsearch_torch.ops import graph as tg
+
+    x = torch.from_numpy(rng.normal(size=(3000, 16)).astype(np.float32))
+    valid = torch.ones(3000, dtype=torch.bool)
+    valid[11] = False
+    cpu = tg.build_graph(x, valid, degree=16, l_build=64, alpha=1.2).numpy()
+    gpu = tg.build_graph(x.to(cuda), valid.to(cuda), degree=16, l_build=64,
+                         alpha=1.2).cpu().numpy()
+    a, b = _edges(cpu), _edges(gpu)
+    assert len(a & b) / max(len(a), len(b)) >= 0.99
+
+
+def test_fused_knn_route_launches_the_exact_pool(cuda, rng):
+    """knn_candidates' fused route (512-row blocks through exact_pool_topk)
+    launches B1 once a block and finds the plain route's candidates."""
+    from vectorsearch_torch.ops import graph as tg
+
+    n = 20_000
+    centers = rng.normal(size=(n // 16, 32)) * 10
+    x = np.repeat(centers, 16, axis=0) + rng.normal(size=(n, 32))
+    xd = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    valid = torch.ones(n, dtype=torch.bool, device=cuda)
+    before = te.exact_pool_cuda.launches
+    fi, fd = tg.knn_candidates(xd, valid, 8, fused=True)
+    assert te.exact_pool_cuda.launches - before == -(-n // 512)
+    pi, _pd = tg.knn_candidates(xd, valid, 8, fused=False)
+    fi, pi = fi.cpu().numpy(), pi.cpu().numpy()
+    assert np.mean([len(set(a) & set(b)) / 8 for a, b in zip(fi, pi)]) >= 0.98
+    assert not (fi == np.arange(n)[:, None]).any()
+
+
+@pytest.mark.parametrize("variant", [
+    "best_first", "beam_min_steps", "row_offsets", "bench_shape",
+])
+def test_graph_expand_on_the_card_matches_the_cpu(cuda, rng, variant):
+    """graph_expand on the card against its CPU run (which
+    tests/test_torch_traversal.py holds equal to the JAX package's) on
+    tie-free inputs: distinct uniform distances, a random graph with -1
+    holes, invalid rows at +inf. Identical candidate ids and distances and
+    the same number of steps."""
+    from vectorsearch_torch.ops import traversal as tt
+
+    q, n, r, seeds, ef, beam = 6, 2000, 8, 16, 60, 12
+    kw = dict(ef_buf=64, beam_buf=16, max_steps=64)
+    offset = None
+    if variant == "beam_min_steps":
+        ef = 1  # exploration ends at once unless min_steps forces hops
+        kw.update(max_steps=6, min_steps=3, refine_frontier=False)
+    elif variant == "bench_shape":
+        # the sift1m graph phase's buffers: ef_buf 256, beam_buf 128, R 32
+        q, n, r, seeds, ef, beam = 64, 100_096, 32, 128, 150, 128
+        kw = dict(ef_buf=256, beam_buf=128, max_steps=256)
+    approx = rng.permutation(q * n).reshape(q, n).astype(np.float32)
+    approx[:, rng.random(n) < 0.05] = np.inf
+    adj = rng.integers(0, n, size=(n, r)).astype(np.int32)
+    adj[rng.random((n, r)) < 0.1] = -1
+    if variant == "row_offsets":  # two segments' rows share one table
+        adj = np.concatenate([adj, rng.integers(0, n, size=(n, r)).astype(np.int32)])
+        offset = torch.from_numpy(np.repeat(np.array([0, n], np.int32), q // 2))
+        ef = torch.tensor([20, 40, 60, 30, 50, 10], dtype=torch.int32)
+        beam = torch.tensor([4, 8, 16, 2, 6, 16], dtype=torch.int32)
+    approx = torch.from_numpy(approx)
+    seed_d, seed_i = torch.topk(approx, seeds, dim=1, largest=False)
+    seed_i = torch.where(torch.isfinite(seed_d), seed_i.to(torch.int32), -1)
+    args = (approx, torch.from_numpy(adj), torch.isfinite(approx).any(dim=0),
+            seed_i, seed_d, ef, beam, offset)
+    out = []
+    for dev in ("cpu", cuda):
+        tt.graph_expand.steps = 0
+        ids, dist = tt.graph_expand(
+            *[a.to(dev) if torch.is_tensor(a) else a for a in args], **kw)
+        out.append((ids.cpu(), dist.cpu(), tt.graph_expand.steps))
+    (ci, cd, cs), (gi, gd, gs) = out
+    assert cs > 0 and (ci >= 0).sum() > q * seeds
+    assert torch.equal(gi, ci) and torch.equal(gd, cd) and gs == cs
+
+
+def test_graph_index_on_the_card_matches_the_cpu(cuda, rng):
+    """Graph mode on the card: B5-fast once a segment a batch, answers like
+    the CPU's (the same graph build, codebooks trained apart; the traversal
+    itself is held identical above)."""
+    x = rng.normal(size=(30_000, 16)).astype(np.float32)
+    q = x[:64] + 0.05 * rng.normal(size=(64, 16)).astype(np.float32)
+    out = []
+    for device in ("cpu", "cuda"):
+        idx = tvs.VectorIndex.create_or_open(tvs.VectorIndexConfig(
+            storage=tvs.MemoryStorage(), name="c", dimension=16,
+            max_segment_size=10_000, pq_m=8, pq_k=64, graph_degree=16,
+            graph_build_breadth=64, device=device, sealed_search_mode="graph",
+        ))
+        try:
+            idx.add_all(x)
+            for sid in range(3):
+                idx.build_service.build(sid)
+            before = ta.adc_scan_cuda.launches
+            out.append(idx.query_batch_arrays(q, 10)[0])
+            if device == "cuda":
+                assert ta.adc_scan_cuda.launches - before == 3
+        finally:
+            idx.close()
+    cg, gg = out
+    assert (gg[:, 0] == np.arange(64)).all() and (cg[:, 0] == np.arange(64)).all()
+    assert np.mean(cg == gg) > 0.9

@@ -4,13 +4,12 @@
 tests/test_global_workers.py that build through the runner, with the
 runner's ``device`` argument, plus the seal it makes.
 
-A worker reconstructs each index's config from its persisted IndexMeta. The
-JAX package takes its defaults there (flat mode, PQ and a graph at seal);
-the port takes the same less the graph, which it cannot build yet (ROADMAP.md
-Queue A13): worker seals carry PQ codes with ``pq_m`` columns, so the serving
+A worker reconstructs each index's config from its persisted IndexMeta. Both
+packages take their defaults there (flat mode, PQ and a graph at seal):
+worker seals carry PQ codes with ``pq_m`` columns and a graph, so the serving
 index answers them through the flat (ADC) route, never from the exact pool.
-Producers here are flat indexes with ``graph_build_mode="skip_for_flat"``:
-the all-defaults config asks for a graph, which the port refuses.
+Producers here are flat indexes with ``graph_build_mode="skip_for_flat"``;
+what the worker seals follows its own reconstructed config.
 """
 
 import numpy as np
@@ -130,16 +129,18 @@ def test_runner_threads_and_sentinel_shutdown(storage, rng):
     a.close()
 
 
-def test_worker_config_matches_jax_less_the_graph(storage):
+def test_worker_config_matches_jax_less_the_graph(storage, rng):
     """The same IndexMeta and worker template through both packages'
-    from_index_meta: equal data and operational params and modes, but for
-    the graph (skip_for_flat until Queue A13); the device is the caller's."""
+    from_index_meta: equal data and operational params and modes (the JAX
+    package's defaults: flat, PQ and a graph at seal); the device is the
+    caller's. A worker seal carries the graph."""
     meta = IndexMeta(name="m", dimension=8, metric="COSINE",
                      max_segment_size=300, pq_m=4, pq_k=16, graph_degree=8,
                      oversample=2)
     fields = ("dimension", "metric", "max_segment_size", "pq_m", "pq_k",
               "graph_degree", "oversample", "graph_build_breadth",
-              "graph_alpha", "sealed_search_mode", "pq_build_mode")
+              "graph_alpha", "sealed_search_mode", "pq_build_mode",
+              "graph_build_mode")
     jcfg = jvs.VectorIndexConfig.from_index_meta(
         jvs.IndexMeta.from_json(meta.to_json()), jvs.MemoryStorage(), "m",
         jvs.WorkerConfig(default_graph_build_breadth=40, default_graph_alpha=1.3),
@@ -151,11 +152,24 @@ def test_worker_config_matches_jax_less_the_graph(storage):
     )
     assert {f: getattr(tcfg, f) for f in fields} == {
         f: getattr(jcfg, f) for f in fields}
-    assert (tcfg.sealed_search_mode, tcfg.pq_build_mode) == ("flat", "always")
-    assert jcfg.graph_build_mode == "always"
-    assert tcfg.graph_build_mode == "skip_for_flat"
+    assert (tcfg.sealed_search_mode, tcfg.pq_build_mode,
+            tcfg.graph_build_mode) == ("flat", "always", "always")
     assert tcfg.device.type == "cpu"
     assert tcfg.effective.local_worker_threads == 0
+
+    bq, mq, mk = make_global_setup(storage)
+    producer = mk("g/w", max_segment_size=300)
+    producer.add_all(rng.normal(size=(320, 8)).astype(np.float32))
+    producer.checkpoint()
+    runner = _runner(storage, WorkerConfig(), bq, mq)
+    assert runner.run_once_build(timeout=0.2)
+    seg = runner._indexes["g/w"].store.segments[0]
+    assert seg.state == SegmentState.SEALED
+    assert seg.codes_np.shape == (seg.cap_pad, 4)
+    assert seg.adjacency_np.shape == (seg.cap_pad, 8)
+    assert (seg.adjacency_np[:300] >= 0).any(axis=1).all()
+    runner.close()
+    producer.close()
 
 
 def test_worker_seals_flat_index_with_pq_and_serves_it_flat(storage, monkeypatch):

@@ -231,3 +231,40 @@ def test_wal_only_rows_survive_reopen(tmp_path, rng):
         idx.close()
     assert gids[1, 0] == 70 and gids[2, 0] == 99
     assert gids[0, 0] != 5
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_graph_index_written_by_one_package_serves_graph_mode_in_both(
+        tmp_path, rng, writer):
+    """A graph index (PQ and a graph built at seal, sealed_search_mode=
+    "graph") written by either package opens in the other with the same
+    graphs and codebooks, and graph mode answers alike: recall@10 within
+    0.01, ids overlapping >= 0.98 (the port ranks the traversal with the
+    bf16-LUT scan, the JAX package on the CPU with the f32 one)."""
+    graph = dict(max_segment_size=512, sealed_search_mode="graph",
+                 graph_build_mode="always", pq_build_mode="always")
+    n = 3 * 512 + 200
+    x, q = _blocked(rng, n, 24)
+    truth = np.argsort(_true_dists(x, q, np.ones(n, bool), "L2"), axis=1)[:, :10]
+    first, second = (jvs, tvs) if writer == "jax" else (tvs, jvs)
+    idx = _open(first, first.DiskStorage(str(tmp_path), fsync=False), **graph)
+    try:
+        _populate(idx, x, built=(0, 1, 2), deleted=[])
+        idx.checkpoint()
+        adj = [np.array(idx.store.segments[s].adjacency_np) for s in (0, 1, 2)]
+    finally:
+        idx.close()
+    out = []
+    for pkg in (first, second):
+        idx = _open(pkg, pkg.DiskStorage(str(tmp_path), fsync=False), **graph)
+        try:
+            for s, a in zip((0, 1, 2), adj):
+                np.testing.assert_array_equal(idx.store.segments[s].adjacency_np, a)
+            out.append(idx.query_batch_arrays(q, 10)[0])
+        finally:
+            idx.close()
+    recall = [np.mean([len(set(g) & set(t)) / 10 for g, t in zip(o, truth)])
+              for o in out]
+    assert abs(recall[0] - recall[1]) <= 0.01 and min(recall) >= 0.9, recall
+    overlap = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(*out)])
+    assert overlap >= 0.98, overlap

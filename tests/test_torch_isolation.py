@@ -125,24 +125,40 @@ def test_kernel_wrapper_rejects_cpu_tensors():
               pq_build_mode="always"), "A12"),
         (dict(sealed_search_mode="graph", graph_build_mode="always",
               pq_build_mode="always"), "A13"),
-        # PQ training at seal is served; building the graph there is not
-        # (the message names A13 and points at A12's graph-less seal)
+        # PQ training and the graph build at seal, in exact mode
         (dict(pq_build_mode="always", graph_build_mode="always"), "A12"),
         (dict(device_placement="round_robin"), "A15"),
         (dict(mesh=object()), "A15"),
     ],
 )
 def test_modes_outside_the_slice_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _config(**kw)
+    """Only the A15 modes (mesh, round-robin placement) still raise; the
+    graph modes (A13, A14) open, and a seal builds a graph."""
+    if item == "A15":
+        with pytest.raises(NotImplementedError, match=item):
+            _config(**kw)
+        return
+    idx = tvs.VectorIndex.create_or_open(_config(**kw))
+    try:
+        x = np.random.default_rng(0).normal(size=(200, 8)).astype(np.float32)
+        idx.add_all(x)
+        idx.build_service.build(0)
+        seg = idx.store.segments[0]
+        assert seg.codes_np.shape == (128, 4)
+        assert seg.adjacency_np.shape == (128, 16)
+        assert (seg.adjacency_np[:128] >= 0).any(axis=1).all()
+        assert idx.query_batch_arrays(x[:4], 1)[0][:, 0].tolist() == [0, 1, 2, 3]
+    finally:
+        idx.close()
 
 
 def test_default_modes_raise_not_implemented():
-    # the config defaults stay the JAX package's (flat mode with the graph
-    # built at seal, which is not ported): a default config fails loudly
-    # instead of serving another mode
-    with pytest.raises(NotImplementedError, match="flat"):
-        tvs.VectorIndexConfig(storage=tvs.MemoryStorage(), name="d")
+    # the config defaults stay the JAX package's (flat mode, PQ and a graph
+    # built at seal), and the port now serves them
+    cfg = tvs.VectorIndexConfig(storage=tvs.MemoryStorage(), name="d")
+    assert (cfg.sealed_search_mode, cfg.graph_build_mode, cfg.pq_build_mode) == (
+        "flat", "always", "always")
+    assert cfg.device.type == "cuda"
 
 
 def test_compaction_and_maintenance_raise():
@@ -329,17 +345,55 @@ def test_flat_port_runs_without_jax_or_the_jax_package():
 
 
 def test_defaults_and_graph_mode_name_what_is_missing():
-    # the all-defaults config is flat mode with the graph built at seal
-    with pytest.raises(NotImplementedError, match="A13"):
-        tvs.VectorIndexConfig(storage=tvs.MemoryStorage(), name="d")
-    with pytest.raises(NotImplementedError, match="A14"):
-        _config(sealed_search_mode="graph", graph_build_mode="always",
-                pq_build_mode="always")
-    with pytest.raises(NotImplementedError, match="A13"):
-        _config(pq_build_mode="always", graph_build_mode="always")
-    # served: flat with a graph-less seal, and exact with PQ at seal
+    # served: the all-defaults config (flat mode with the graph built at
+    # seal), graph mode, flat with a graph-less seal, exact with PQ at seal
+    cfg = tvs.VectorIndexConfig(storage=tvs.MemoryStorage(), name="d")
+    assert (cfg.sealed_search_mode, cfg.graph_build_mode) == ("flat", "always")
+    assert _config(sealed_search_mode="graph", graph_build_mode="always",
+                   pq_build_mode="always").sealed_search_mode == "graph"
+    assert _config(pq_build_mode="always", graph_build_mode="always").pq_build_mode == "always"
     assert _config(sealed_search_mode="flat", pq_build_mode="always").sealed_search_mode == "flat"
     assert _config(pq_build_mode="always").pq_build_mode == "always"
+    # not served yet: what A15 ports
+    with pytest.raises(NotImplementedError, match="A15"):
+        _config(device_placement="round_robin")
+
+
+_GRAPH_PROBE = r"""
+import sys
+import numpy as np
+import vectorsearch_torch as vs
+x = np.random.default_rng(0).normal(size=(300, 8)).astype(np.float32)
+for mode, unified in (("graph", False), ("graph", True), ("flat", False)):
+    idx = vs.VectorIndex.create_or_open(vs.VectorIndexConfig(
+        storage=vs.MemoryStorage(), name="p", dimension=8, max_segment_size=100,
+        pq_m=4, pq_k=16, graph_degree=8, graph_build_breadth=32, device="cpu",
+        sealed_search_mode=mode, unified_search=unified))
+    idx.add_all(x)
+    for sid in (0, 1, 2):
+        idx.build_service.build(sid)
+    assert idx.store.segments[0].adjacency_np.shape == (128, 8)
+    for p in (None, vs.SearchParams(ef_search=32, beam_width=8, mode=vs.Mode.BEAM),
+              vs.SearchParams(ef_search=32, beam_width=8,
+                              seed_strategy=vs.SeedStrategy.RANDOM_PIVOTS)):
+        gids, _s, _d = idx.query_batch_arrays(x[:4], 3, p)
+        assert gids[:, 0].tolist() == [0, 1, 2, 3], gids
+    idx.close()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "vectorsearch_tpu")))
+print("LOADED", bad)
+"""
+
+
+def test_graph_port_runs_without_jax_or_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run(
+        [sys.executable, "-c", _GRAPH_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
 
 
 def test_cuda_tensor_never_takes_the_plain_adc_paths(monkeypatch):

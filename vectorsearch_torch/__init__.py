@@ -9,10 +9,11 @@ copies, and the checkpoint/WAL format is the same, so an index written by
 either package opens in the other.
 
 The port serves exact mode (``sealed_search_mode="exact"`` with
-``pq_build_mode="skip_for_exact"``) and flat mode (``sealed_search_mode=
-"flat"`` with ``graph_build_mode="skip_for_flat"``: PQ trained at seal, ADC
-candidate pools, exact re-rank) end to end: add, seal, query, merge and gid
-mapping. Its kernels are hand-written CUDA: the exact pool scans, two-plane
+``pq_build_mode="skip_for_exact"``), flat mode (PQ and, by default, a graph
+built at seal; ADC candidate pools, exact re-rank) and graph mode
+(``sealed_search_mode="graph"``: ADC seeds, graph traversal, exact
+re-rank; also BEAM and RANDOM_PIVOTS) end to end: add, seal, query, merge
+and gid mapping. Its kernels are hand-written CUDA: the exact pool scans, two-plane
 and packed (``csrc/exact_pool_tc.cu``, on the tensor cores), and the ADC
 pool and scans (``csrc/adc.cu``).
 Indexes run on ``config.device`` (default ``"cuda"``); the CPU runs only

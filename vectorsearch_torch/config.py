@@ -3,13 +3,10 @@
 Own copy of ``vectorsearch_tpu/config.py`` for the PyTorch port. Differences:
 ``device`` takes a torch device and defaults to ``"cuda"`` (opening an index
 with no CUDA device raises unless the caller asks for ``device="cpu"``), and
-the modes this port does not serve yet raise ``NotImplementedError`` naming
-the ROADMAP.md item that will port them. The defaults stay those of the JAX
-package (flat mode with ``graph_build_mode="always"``), and the graph build
-is not ported, so a default config raises here: pass
-``graph_build_mode="skip_for_flat"`` (flat mode, PQ trained at seal), or
-``sealed_search_mode="exact"`` with ``graph_build_mode="skip_for_flat"`` and
-``pq_build_mode="skip_for_exact"`` (exact mode, no PQ).
+the modes this port does not serve yet (``mesh``, ``device_placement=
+"round_robin"``) raise ``NotImplementedError`` naming the ROADMAP.md item
+that will port them. The defaults are those of the JAX package (flat mode,
+PQ and a graph built at seal).
 
 Mirrors the reference's config system (config/VectorIndexConfig.java:18-710,
 config/WorkerConfig.java:22-455, config/GlobalTaskQueueConfig.java:18-48):
@@ -460,21 +457,6 @@ class VectorIndexConfig:
     def _check_ported(self) -> None:
         """Modes the port does not serve yet fail loudly; they are never
         served another way."""
-        if self.sealed_search_mode == "graph":
-            raise NotImplementedError(
-                "sealed_search_mode='graph' is not ported to PyTorch yet: it "
-                "needs the graph build (ROADMAP.md Queue A13) and the graph "
-                "traversal (Queue A14)"
-            )
-        if self.graph_build_mode == "always":
-            # pq_build_mode="skip_for_exact" already requires skip_for_flat
-            raise NotImplementedError(
-                f"sealed_search_mode={self.sealed_search_mode!r} with "
-                "graph_build_mode='always' builds the traversal graph at "
-                "seal, which is not ported to PyTorch yet (ROADMAP.md Queue "
-                "A13); flat mode and PQ training at seal (Queue A12) are "
-                "served with graph_build_mode='skip_for_flat'"
-            )
         if self.mesh is not None:
             raise NotImplementedError(
                 "mesh sharding is not ported to PyTorch yet (ROADMAP.md "
@@ -601,10 +583,10 @@ class VectorIndexConfig:
         (reference: tasks/GlobalWorkerRunner.java:364-425). Zero-valued optional
         fields fall back to the worker defaults (reference: WorkerConfig.java:282-289).
 
-        The modes are the JAX package's defaults (flat, PQ at seal) less the
-        graph, which the port cannot build yet (ROADMAP.md Queue A13): seals
-        carry PQ codes and no graph. ``device`` is the worker's own; it is
-        not persisted, so the storage format stays the JAX package's.
+        The modes are the JAX package's: it passes none, so they are the
+        defaults (flat mode, PQ and a graph built at seal). ``device`` is the
+        worker's own; it is not persisted, so the storage format stays the
+        JAX package's.
         """
         return VectorIndexConfig(
             storage=storage,
@@ -625,9 +607,6 @@ class VectorIndexConfig:
             worker_config=worker.replace(
                 local_worker_threads=0, local_maintenance_worker_threads=0
             ),
-            sealed_search_mode="flat",
-            graph_build_mode="skip_for_flat",  # "always" after Queue A13
-            pq_build_mode="always",
             device=device,
         )
 

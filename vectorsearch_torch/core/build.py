@@ -1,17 +1,18 @@
 """SegmentBuildService: the sealer (reference: tasks/SegmentBuildService.java:51-393).
 
-Mirrors ``vectorsearch_tpu/core/build.py`` for the three seals this port
-serves:
+Mirrors ``vectorsearch_tpu/core/build.py``:
   - an empty segment: zero codebook (reference :116-120,143-157);
   - ``pq_build_mode="skip_for_exact"``: a metadata flip + checkpoint with
     zero-column codes and adjacency planes (no PQ or graph compute);
-  - ``pq_build_mode="always"`` with ``graph_build_mode="skip_for_flat"``: PQ
-    training and encoding on the segment's device (every written row,
-    tombstones included, as the reference encodes every stored record,
-    :159-185), a finite-codebook check that fails the build so the queue
-    retries, and a graph-less seal (zero-column adjacency).
-The graph build (ROADMAP.md Queue A13) and the mesh-sharded build (A15)
-raise; the config refuses the modes that need them.
+  - otherwise PQ training and encoding on the segment's device (every
+    written row, tombstones included, as the reference encodes every stored
+    record, :159-185), a finite-codebook check that fails the build so the
+    queue retries, and then either a graph-less seal (zero-column adjacency:
+    ``graph_build_mode="skip_for_flat"`` in flat or exact mode) or the graph
+    build (``ops/graph.build_graph``) over the same rows, padded with -1 to
+    ``graph_degree`` columns.
+The mesh-sharded build (ROADMAP.md Queue A15) raises; the config refuses
+the mode that needs it.
 
 PyTorch compiles nothing per shape, so the JAX package's per-device compute
 lock (which serialized kernel compiles across build threads) has no
@@ -28,6 +29,7 @@ import torch
 
 from vectorsearch_torch.config import VectorIndexConfig
 from vectorsearch_torch.core.store import VectorStore
+from vectorsearch_torch.ops import graph as graph_ops
 from vectorsearch_torch.ops import pq as pq_ops
 from vectorsearch_torch.types import SegmentState
 from vectorsearch_torch.utils.metrics import get_registry
@@ -91,16 +93,6 @@ class SegmentBuildService:
                 "the mesh-sharded PQ build is not ported to PyTorch yet "
                 "(ROADMAP.md Queue A15)"
             )
-        if not (
-            cfg.graph_build_mode == "skip_for_flat"
-            and cfg.sealed_search_mode in ("flat", "exact")
-        ):
-            raise NotImplementedError(
-                "the graph build at seal is not ported to PyTorch yet "
-                "(ROADMAP.md Queue A13); flat and exact mode seal graph-less "
-                "with graph_build_mode='skip_for_flat'"
-            )
-
         # every written row, tombstones included; the logical dim, since the
         # PQ subspace split (m x sub = dim) must see the unpadded width
         with self.store.lock:
@@ -119,12 +111,36 @@ class SegmentBuildService:
                 f"PQ training failed for segment {seg_id} (m={m}, k={k})"
             )
         codes = pq_ops.pq_encode(xs, codebook, ex)
-        # flat/exact search never reads adjacency: a zero-column plane marks
-        # the segment graph-less
-        self._seal(
-            seg_id, codes.cpu().numpy(), codebook.cpu().numpy(),
-            np.zeros((seg.cap_pad, 0), np.int32),
-        )
+        if (
+            cfg.graph_build_mode == "skip_for_flat"
+            and cfg.sealed_search_mode in ("flat", "exact")
+        ):
+            # flat/exact search never reads adjacency: a zero-column plane
+            # marks the segment graph-less (traversal requests fall back to
+            # the pool, see index._query_batch)
+            self._seal(
+                seg_id, codes.cpu().numpy(), codebook.cpu().numpy(),
+                np.zeros((seg.cap_pad, 0), np.int32),
+            )
+            return
+
+        degree = max(0, min(cfg.graph_degree, n_rows - 1))
+        l_build = max(degree, cfg.graph_build_breadth)
+        if degree == 0:
+            adjacency = np.full((seg.cap_pad, cfg.graph_degree), -1, np.int32)
+        else:
+            adjacency = graph_ops.build_graph(
+                xs, ex, degree=degree, l_build=l_build, alpha=cfg.graph_alpha
+            ).cpu().numpy()
+            if degree < cfg.graph_degree:
+                adjacency = np.pad(
+                    adjacency, ((0, 0), (0, cfg.graph_degree - degree)),
+                    constant_values=-1,
+                )
+        # .numpy() of a CPU tensor shares its memory, and vacuum mutates the
+        # host planes in place: the seal keeps copies
+        self._seal(seg_id, np.array(codes.cpu().numpy()),
+                   np.array(codebook.cpu().numpy()), np.array(adjacency))
 
     def _seal(self, seg_id: int, codes, codebook, adjacency) -> None:
         with self.store.lock:

@@ -2,10 +2,8 @@
 (reference: cache/SegmentCaches.java:33-271).
 
 Own copy of ``vectorsearch_tpu/core/caches.py`` for the PyTorch port: the
-codebook loader and gauges of the flat path, the device-residency budget and
-LRU eviction. The adjacency loader belongs to the traversal slice (ROADMAP.md
-Queue A14): no sealed segment's graph goes to the device yet, so its gauge
-reads 0.
+codebook and adjacency loaders with their gauges, the device-residency
+budget and LRU eviction.
 
 The reference caches decoded codebooks and adjacency rows loaded from FDB. In
 the TPU design those artifacts live in each sealed segment's device bundle, so
@@ -80,8 +78,33 @@ class SegmentCaches:
 
     # --------------------------------------------------------------- adjacency
 
+    def get_adjacency(self, seg):
+        """Device adjacency for a sealed segment (loads on miss)."""
+        attrs = {"cache": "adjacency"}
+        with seg._dev_lock:
+            resident = seg._adjacency_dev is not None
+        if resident:
+            self._metrics.inc("vectorsearch.cache.hit", attrs=attrs)
+        else:
+            self._metrics.inc("vectorsearch.cache.miss", attrs=attrs)
+        adj = seg.adjacency_dev
+        if adj is None:
+            self._metrics.inc("vectorsearch.cache.load_failure", attrs=attrs)
+        elif not resident:
+            self._metrics.inc("vectorsearch.cache.load_success", attrs=attrs)
+        return adj
+
     def adjacency_cache_size(self) -> int:
-        return 0
+        """Adjacency rows resident on the device (the reference counts
+        per-(segId, vecId) entries)."""
+        with self.store.lock:
+            segs = list(self.store.segments.values())
+        n = 0
+        for seg in segs:
+            with seg._dev_lock:
+                if seg._adjacency_dev is not None:
+                    n += seg.next_row
+        return n
 
     # ---------------------------------------------------------------- eviction
 

@@ -1,8 +1,8 @@
 """VectorIndex: the public entry point + query engine
 (reference: api/VectorIndex.java:32-200, fdb/FdbVectorIndex.java:62-1080).
 
-Mirrors ``vectorsearch_tpu/core/index.py`` in exact and flat mode
-(``sealed_search_mode="exact"`` / ``"flat"``), the slices this port serves:
+Mirrors ``vectorsearch_tpu/core/index.py`` in exact, flat and graph mode
+(``sealed_search_mode="exact"`` / ``"flat"`` / ``"graph"``):
 
 - snapshot the segment registry;
 - ACTIVE/PENDING segments -> brute force, one flattened product per
@@ -16,9 +16,15 @@ Mirrors ``vectorsearch_tpu/core/index.py`` in exact and flat mode
     segments of a group batched into each call (``_flat_segments_query``);
     with ``unified_search=True`` power-of-two subgroups share one ADC
     top-ef over the whole subgroup (``_unified_flat_query``);
+  - graph mode, and BEAM or RANDOM_PIVOTS in any mode against segments
+    with a graph: per segment, LUT -> full ADC scan -> top-beam seeds ->
+    graph expansion -> exact re-rank (``_sealed_graph_query``; RANDOM_PIVOTS
+    adds deterministic pivot seeds, ``_search_sealed``); with
+    ``unified_search=True`` one traversal over a subgroup's global graph
+    (``_unified_graph_query``), with ``fuse_multi_segment_queries=True``
+    one traversal over (query, segment) rows (``_multi_graph_query``);
   - graph-less segments asked for a traversal (BEAM, RANDOM_PIVOTS) are
     served from their pool, PQ-less ones from the exact pool (warn-once);
-    a segment with a traversal graph asked for a traversal raises (A14);
   WRITING segments are invisible;
 - merge every group by score, truncate to k, map (slot, row) to gids on the
   host.
@@ -32,9 +38,11 @@ compile-warming machinery (``wait_sync_ladder`` and the sync-ladder
 warm-up, shape warming after rotations) have no counterpart, since PyTorch
 runs eagerly and compiles nothing per shape; the asynchronous codebook
 prefetch (codebooks load on first use; ``prefetch_codebooks_sync`` loads
-them before the batch); the sampled split-phase breakdown profiling, graph
-traversal, mesh and multi-device merges belong to later slices (ROADMAP.md
-Queue A11-A15), as does the async facade with its QueryBatcher.
+them before the batch); the sampled split-phase breakdown profiling, mesh
+and multi-device merges belong to later slices (ROADMAP.md Queue A11, A15),
+as does the async facade with its QueryBatcher. The JAX package's warning
+that graph traversal is slow on a TPU (``_warn_traversal_perf_once``) has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -106,14 +114,6 @@ def _pqless(seg) -> bool:
     return seg.codes_np is not None and seg.codes_np.shape[1] == 0
 
 
-def _traversal_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "graph traversal (BEAM mode, RANDOM_PIVOTS or sealed_search_mode="
-        "'graph' against segments that carry a graph) is not ported to "
-        "PyTorch yet (ROADMAP.md Queue A14)"
-    )
-
-
 def _pad_cols(q: torch.Tensor, d: int) -> torch.Tensor:
     """Zero-pads q's feature dim to the segments' lane-padded width (exact
     for L2 and cosine scores)."""
@@ -170,10 +170,7 @@ def _unified_exact_query(q, stack, slot_base: int, *, ef_buf, rr, metric):
         stack.xn2.reshape(-1), ef_buf=ef_buf, metric=metric,
     )
     scores, dists, gidx = traversal_ops.exact_finalize(q, ps, pi, rr, metric)
-    seg_of = torch.div(gidx, n, rounding_mode="floor")
-    vid = torch.where(gidx >= 0, gidx - seg_of * n, -1)
-    slot = torch.where(gidx >= 0, slot_base + seg_of, -1)
-    return scores, dists, vid.to(torch.int32), slot.to(torch.int32)
+    return _split_global(scores, dists, gidx, n, slot_base)
 
 
 def _flat_segments_query(q, segs, codebooks, slot_base: int, *, ef_dyn,
@@ -222,11 +219,7 @@ def _unified_flat_query(q, stack, slot_base: int, *, ef_dyn, ef_buf, rr,
     The ef is shared per query over the whole subgroup, not spent in every
     segment (config.unified_search)."""
     s_count, n, d = stack.vectors.shape
-    luts = pq_ops.build_luts(q, stack.codebooks)
-    approx = torch.cat([
-        pq_ops.adc_scan_auto(luts[i], stack.codes[i], stack.exists[i])
-        for i in range(s_count)
-    ], dim=1)  # [Q, S*N]
+    approx = torch.cat(_subgroup_scans(q, stack), dim=1)  # [Q, S*N]
     neg, idx = torch.topk(-approx, min(ef_buf, approx.shape[1]), dim=1)
     del approx
     ok = torch.isfinite(neg)
@@ -237,10 +230,166 @@ def _unified_flat_query(q, stack, slot_base: int, *, ef_dyn, ef_buf, rr,
         q, stack.vectors.reshape(s_count * n, d), stack.alive.reshape(-1),
         cand, rr, metric,
     )
+    return _split_global(scores, dists, gidx, n, slot_base)
+
+
+def _seeds(approx, beam_buf):
+    """The top-beam rows of an ADC scan as traversal seeds: (ids i32[Q, B],
+    distances f32[Q, B]), -1 where the row is invalid. An exact top-k where
+    the JAX package takes approx_max_k at recall target 0.95."""
+    seed_d, seed_idx = torch.topk(approx, beam_buf, dim=1, largest=False)
+    return torch.where(torch.isfinite(seed_d), seed_idx.to(torch.int32), -1), seed_d
+
+
+def _walk(params: SearchParams, ef_buf: int) -> dict:
+    """The traversal's step settings: BEST_FIRST walks until its pool is
+    explored (at most ef_buf steps); legacy BEAM (reference :841-903) takes
+    max_iters steps, at least min_hops."""
+    if params.mode == Mode.BEST_FIRST:
+        return dict(max_steps=ef_buf, min_steps=0, refine_frontier=True)
+    return dict(max_steps=max(params.max_iters, params.min_hops),
+                min_steps=params.min_hops,
+                refine_frontier=params.refine_frontier)
+
+
+def _sealed_seed_expand(approx, adjacency, exists, ef_dyn, beam_dyn, *,
+                        ef_buf, beam_buf, max_steps, min_steps, refine_frontier,
+                        extra_seeds=None):
+    """Graph mode after the scan: seeds (the top beam_buf rows, plus
+    ``extra_seeds`` i32[P] for every query) + frontier expansion -> the
+    candidate pool i32[Q, ef_buf]."""
+    seed_idx, seed_d = _seeds(approx, beam_buf)
+    if extra_seeds is not None:
+        # a seed already among the top beam adds nothing: graph_expand
+        # dedups its seeds
+        extra = extra_seeds[None, :].expand(approx.shape[0], -1)
+        seed_idx = torch.cat([seed_idx, extra], dim=1)
+        seed_d = torch.cat([seed_d, torch.gather(approx, 1, extra.long())], dim=1)
+    cand_idx, _cand_d = traversal_ops.graph_expand(
+        approx, adjacency, exists, seed_idx, seed_d, ef_dyn, beam_dyn,
+        ef_buf=ef_buf, beam_buf=beam_buf, max_steps=max_steps,
+        min_steps=min_steps, refine_frontier=refine_frontier,
+    )
+    return cand_idx
+
+
+def _sealed_graph_query(q, seg, codebook, adjacency, slot_base: int, *,
+                        ef_dyn, beam_dyn, ef_buf, beam_buf, max_steps,
+                        min_steps, refine_frontier, rr, metric, pivots=0):
+    """One sealed segment by traversal (``_sealed_query_slot_step`` with
+    flat=False in the JAX package): LUT -> full ADC scan (the B5 kernel,
+    ``_sealed_approx_scan``) -> seeds -> graph expansion -> exact re-rank,
+    plus the segment-slot plane. The scan covers ``exists``: removed rows
+    are +inf and never expanded; tombstones drop at the re-rank.
+    ``pivots`` > 0 adds RANDOM_PIVOTS' deterministic seeds
+    (``_pivot_rows``)."""
+    snap = seg.flat_snapshot()
+    lut = pq_ops.build_lut(q, codebook)
+    approx = pq_ops.adc_scan_auto(lut, snap.codes, snap.exists)
+    extra = None
+    if pivots > 0:
+        pick = _pivot_rows(seg.seg_id, float(lut[0, 0, 0]),
+                           seg.exists_np[: seg.next_row], pivots)
+        extra = torch.as_tensor(pick, dtype=torch.int32, device=approx.device)
+    cand = _sealed_seed_expand(
+        approx, adjacency, snap.exists, ef_dyn, beam_dyn, ef_buf=ef_buf,
+        beam_buf=beam_buf, max_steps=max_steps, min_steps=min_steps,
+        refine_frontier=refine_frontier, extra_seeds=extra,
+    )
+    del approx
+    sc, di, iv = traversal_ops.exact_rerank(q, snap.vectors, snap.alive, cand,
+                                            rr, metric)
+    return sc, di, iv, torch.where(iv >= 0, slot_base, -1).to(torch.int32)
+
+
+def _split_global(scores, dists, gidx, n, slot_base):
+    """Global row ids of a flattened subgroup -> (scores, dists, rows,
+    slots)."""
     seg_of = torch.div(gidx, n, rounding_mode="floor")
     vid = torch.where(gidx >= 0, gidx - seg_of * n, -1)
     slot = torch.where(gidx >= 0, slot_base + seg_of, -1)
     return scores, dists, vid.to(torch.int32), slot.to(torch.int32)
+
+
+def _subgroup_scans(q, stack):
+    """The B5 scan of each member of a stack against its own codebook ->
+    list of S f32[Q, N] distance planes."""
+    luts = pq_ops.build_luts(q, stack.codebooks)
+    return [pq_ops.adc_scan_auto(luts[i], stack.codes[i], stack.exists[i])
+            for i in range(stack.codes.shape[0])]
+
+
+def _unified_graph_query(q, stack, slot_base: int, *, ef_dyn, beam_dyn,
+                         ef_buf, beam_buf, max_steps, min_steps,
+                         refine_frontier, rr, metric):
+    """A subgroup of same-capacity sealed segments as ONE disconnected graph
+    with global row ids (``_unified_sealed_query`` with flat=False in the
+    JAX package): seeds from the global ADC top-beam, one pool of ef_buf
+    and one shared exploration budget per query over the whole subgroup,
+    one exact re-rank over the flattened subgroup (config.unified_search)."""
+    s_count, n, d = stack.vectors.shape
+    approx = torch.cat(_subgroup_scans(q, stack), dim=1)  # [Q, S*N]
+    cand = _sealed_seed_expand(
+        approx, stack.adjacency_global, stack.exists.reshape(-1), ef_dyn,
+        beam_dyn, ef_buf=ef_buf, beam_buf=beam_buf, max_steps=max_steps,
+        min_steps=min_steps, refine_frontier=refine_frontier,
+    )
+    del approx
+    scores, dists, gidx = traversal_ops.exact_rerank(
+        q, stack.vectors.reshape(s_count * n, d), stack.alive.reshape(-1),
+        cand, rr, metric,
+    )
+    return _split_global(scores, dists, gidx, n, slot_base)
+
+
+def _multi_graph_query(q, stack, slot_base: int, *, ef_dyn, beam_dyn, ef_buf,
+                       beam_buf, max_steps, min_steps, refine_frontier, rr,
+                       metric):
+    """Same-capacity sealed segments in ONE traversal by stacking (query,
+    segment) pairs on the row axis (``_multi_sealed_query`` in the JAX
+    package): each row keeps its own segment's ef and beam (``ef_dyn``,
+    ``beam_dyn``: one per segment) and an offset into the flattened
+    [S*N, R] adjacency, whose ids stay segment-local, so each row searches
+    its own segment exactly as the per-segment route does."""
+    s_count, n, d = stack.vectors.shape
+    qn = q.shape[0]
+    approx = torch.cat(_subgroup_scans(q, stack), dim=0)  # [S*Q, N]
+    seed_idx, seed_d = _seeds(approx, beam_buf)
+    dev = approx.device
+    row_off = torch.arange(s_count, dtype=torch.int32, device=dev).mul_(n)
+    row_off = row_off.repeat_interleave(qn)
+    ef_rows = torch.tensor(ef_dyn, dtype=torch.int32, device=dev).repeat_interleave(qn)
+    beam_rows = torch.tensor(beam_dyn, dtype=torch.int32, device=dev).repeat_interleave(qn)
+    cand, _cand_d = traversal_ops.graph_expand(
+        approx, stack.adjacency.reshape(s_count * n, -1),
+        stack.exists.reshape(-1), seed_idx, seed_d, ef_rows, beam_rows,
+        row_off, ef_buf=ef_buf, beam_buf=beam_buf, max_steps=max_steps,
+        min_steps=min_steps, refine_frontier=refine_frontier,
+    )
+    del approx
+    flat_ids = torch.where(cand >= 0, cand + row_off[:, None], -1)
+    scores, dists, gidx = traversal_ops.exact_rerank(
+        q.repeat(s_count, 1), stack.vectors.reshape(s_count * n, d),
+        stack.alive.reshape(-1), flat_ids, rr, metric,
+    )
+    planes = _split_global(scores, dists, gidx, n, slot_base)
+    # [S*Q, rr] -> [Q, S*rr], one block of columns per segment
+    return tuple(
+        t.reshape(s_count, qn, -1).permute(1, 0, 2).reshape(qn, -1)
+        for t in planes
+    )
+
+
+def _pivot_rows(seg_id: int, lut00: float, exists: np.ndarray,
+                pivots: int) -> np.ndarray:
+    """RANDOM_PIVOTS' deterministic extra seeds (reference :804-812, seeded
+    (segId << 21) ^ bits(lut[0][0])): ``pivots`` existing rows drawn
+    uniformly, as the JAX package draws them (a uniform rank past the beam
+    in the approximate order is a uniform valid row)."""
+    seed = ((seg_id << 21) ^ np.float64(lut00).view(np.int64).item()) & 0xFFFFFFFF
+    rnd = np.random.RandomState(seed)
+    rows = np.flatnonzero(exists)
+    return rows[rnd.randint(0, len(rows), size=pivots)]
 
 
 def _stacked_brute_query(q, x_flat, valid_flat, slot_base, k, metric,
@@ -615,9 +764,9 @@ class VectorIndex:
             )
 
         # --- sealed segments: per capacity group ---
-        # Flat and exact are BEST_FIRST pools; BEAM and RANDOM_PIVOTS are
-        # traversal concepts, served from the pools only for graph-less
-        # segments (the JAX package traverses segments that have a graph).
+        # Flat and exact are BEST_FIRST pools; graph mode, BEAM and
+        # RANDOM_PIVOTS traverse the segments that have a graph and are
+        # served from the pools for graph-less ones.
         mode_cfg = self.config.sealed_search_mode
         flat = mode_cfg == "flat" and params.mode == Mode.BEST_FIRST
         exact = mode_cfg == "exact" and params.mode == Mode.BEST_FIRST
@@ -659,18 +808,20 @@ class VectorIndex:
                         (sc, di, iv, torch.where(iv >= 0, base, -1).to(torch.int32))
                     )
                 continue
-            if not (gflat or gexact):
-                raise _traversal_not_ported()
+            graph = not (gflat or gexact)
             if gexact:
                 # the pool covers k plus bin-collision slack (4k), not
                 # efSearch: there is no lossy scan to make up for, and
                 # tombstones are masked out of the ranking
                 ef_buf = min(_bucket(max(4 * k, 32)), cap)
             else:
-                tuned_max = max(self._auto_tune(seg, k, params)[0] for seg in group)
-                ef_buf = min(_bucket(max(tuned_max, k)), cap)
-            # The unified flat route builds one [Q, S*N] f32 ADC matrix, so
-            # it is bounded by bytes; the exact route builds none (its pool
+                tuned = [self._auto_tune(seg, k, params) for seg in group]
+                ef_buf = min(_bucket(max(max(t[0] for t in tuned), k)), cap)
+            if graph:
+                beam_buf = min(_bucket(max(t[1] for t in tuned), lo=8), ef_buf)
+                walk = _walk(params, ef_buf)
+            # The unified routes build one [Q, S*N] f32 ADC matrix, so they
+            # are bounded by bytes; the exact route builds none (its pool
             # never materializes the score matrix), so it takes power-of-two
             # subgroups at every size. The JAX package applies the bound to
             # both (ROADMAP.md Queue C).
@@ -692,7 +843,7 @@ class VectorIndex:
                     if len(sub) == 1:
                         rest.extend(sub)
                         continue
-                    stack = self._stacks.sealed(sub, pq=gflat)
+                    stack = self._stacks.sealed(sub, pq=not gexact)
                     base = len(seg_list)
                     seg_list.extend(sub)
                     if gexact:
@@ -706,13 +857,26 @@ class VectorIndex:
                         )
                         continue
                     total_codes = sum(seg.exists_count() for seg in sub)
-                    u_ef, _u_beam = self._auto_tune_n(total_codes, k, params)
+                    u_ef, u_beam = self._auto_tune_n(total_codes, k, params)
                     u_ef_buf = min(_bucket(max(u_ef, k)), len(sub) * cap)
+                    u_rr = min(per_seg_limit * len(sub), u_ef_buf)
+                    if gflat:
+                        entries.append(
+                            _unified_flat_query(
+                                qd, stack, base, ef_dyn=u_ef, ef_buf=u_ef_buf,
+                                rr=u_rr, metric=metric, flat_strict=flat_strict,
+                            )
+                        )
+                        continue
                     entries.append(
-                        _unified_flat_query(
-                            qd, stack, base, ef_dyn=u_ef, ef_buf=u_ef_buf,
-                            rr=min(per_seg_limit * len(sub), u_ef_buf),
-                            metric=metric, flat_strict=flat_strict,
+                        _unified_graph_query(
+                            qd, stack, base, ef_dyn=u_ef, beam_dyn=u_beam,
+                            ef_buf=u_ef_buf,
+                            beam_buf=min(_bucket(u_beam, lo=8), u_ef_buf),
+                            # up to its own pool size in either mode, as
+                            # the JAX package's unified route walks
+                            **dict(walk, max_steps=u_ef_buf), rr=u_rr,
+                            metric=metric,
                         )
                     )
                 group = rest
@@ -728,6 +892,38 @@ class VectorIndex:
                     )
                 continue
             if not group:
+                continue
+            if graph:
+                tuned = [self._auto_tune(seg, k, params) for seg in group]
+                steps = dict(ef_buf=ef_buf, beam_buf=beam_buf,
+                             **walk, rr=rr, metric=metric)
+                # off by default (fuse_multi_segment_queries): one traversal
+                # for the group's (query, segment) rows
+                if (
+                    self.config.fuse_multi_segment_queries
+                    and len(group) > 1
+                    and approx_bytes <= (1 << 30)
+                ):
+                    stack = self._stacks.sealed(group, pq=True)
+                    base = len(seg_list)
+                    seg_list.extend(group)
+                    entries.append(
+                        _multi_graph_query(
+                            qd, stack, base, ef_dyn=[t[0] for t in tuned],
+                            beam_dyn=[t[1] for t in tuned], **steps,
+                        )
+                    )
+                    continue
+                for seg, (tuned_ef, tuned_beam) in zip(group, tuned):
+                    base = len(seg_list)
+                    seg_list.append(seg)
+                    entries.append(
+                        _sealed_graph_query(
+                            qd, seg, self.caches.get_codebook(seg),
+                            self.caches.get_adjacency(seg), base,
+                            ef_dyn=tuned_ef, beam_dyn=tuned_beam, **steps,
+                        )
+                    )
                 continue
             # flat, per segment: batches of segments share each call, as
             # many as keep the re-rank's gathered block under its budget
@@ -880,29 +1076,43 @@ class VectorIndex:
 
     def _search_sealed(self, qd, seg: Segment, k: int, limit: int,
                        params: SearchParams):
-        """One sealed segment under RANDOM_PIVOTS (reference :730-837). A
-        graph-less segment is served from its pool instead (the JAX
-        package's ``_search_sealed`` graph-less branch): the exact pool in
-        exact mode or for a PQ-less segment, else the flat pool. Returns
-        (scores, dists, rows) or None for a segment with no rows."""
-        if seg.exists_count() == 0:
+        """One sealed segment under RANDOM_PIVOTS (reference :730-837):
+        LUT -> full ADC scan -> top-beam seeds plus the pivot seeds ->
+        graph expansion -> exact re-rank. A graph-less segment is served
+        from its pool instead: the exact pool in exact mode or for a
+        PQ-less segment, else the flat pool. Returns (scores, dists, rows)
+        or None for a segment with no rows."""
+        n_codes = seg.exists_count()
+        if n_codes == 0:
             return None
-        if not _graphless(seg):
-            raise _traversal_not_ported()
-        self._warn_graphless_once()
         metric = self.config.metric
-        if self.config.sealed_search_mode == "exact" or _pqless(seg):
-            ef_buf = min(_bucket(max(4 * k, 32)), seg.cap_pad)
-            sc, di, iv, _slots = _sealed_exact_query(
-                qd, seg, 0, ef_buf=ef_buf, rr=min(limit, ef_buf), metric=metric,
+        tuned_ef, tuned_beam = self._auto_tune(seg, k, params)
+        if _graphless(seg):
+            self._warn_graphless_once()
+            if self.config.sealed_search_mode == "exact" or _pqless(seg):
+                ef_buf = min(_bucket(max(4 * k, 32)), seg.cap_pad)
+                sc, di, iv, _slots = _sealed_exact_query(
+                    qd, seg, 0, ef_buf=ef_buf, rr=min(limit, ef_buf),
+                    metric=metric,
+                )
+                return sc, di, iv
+            ef_buf = min(_bucket(max(tuned_ef, k)), seg.cap_pad)
+            sc, di, iv, _slots = _flat_segments_query(
+                qd, [seg], [self.caches.get_codebook(seg)], 0,
+                ef_dyn=[tuned_ef], ef_buf=ef_buf, rr=min(limit, ef_buf),
+                metric=metric,
+                flat_strict=self.config.flat_ef_semantics == "strict",
             )
             return sc, di, iv
-        tuned_ef, _tb = self._auto_tune(seg, k, params)
+
         ef_buf = min(_bucket(max(tuned_ef, k)), seg.cap_pad)
-        sc, di, iv, _slots = _flat_segments_query(
-            qd, [seg], [self.caches.get_codebook(seg)], 0, ef_dyn=[tuned_ef],
-            ef_buf=ef_buf, rr=min(limit, ef_buf), metric=metric,
-            flat_strict=self.config.flat_ef_semantics == "strict",
+        sc, di, iv, _slots = _sealed_graph_query(
+            qd, seg, self.caches.get_codebook(seg), self.caches.get_adjacency(seg),
+            0, ef_dyn=tuned_ef, beam_dyn=tuned_beam, ef_buf=ef_buf,
+            beam_buf=min(_bucket(tuned_beam, lo=8), ef_buf),
+            **_walk(params, ef_buf), rr=min(limit, ef_buf), metric=metric,
+            pivots=(min(params.pivots, n_codes - tuned_beam)
+                    if n_codes > tuned_beam else 0),
         )
         return sc, di, iv
 

@@ -17,12 +17,14 @@ write: ``sync_device`` clones a plane, writes the clone, and then publishes
 it. A tensor a query already holds is never written in place.
 
 Sealed artifacts: the PQ codes (u8[cap_pad, M]) and the codebook go to the
-device on the flat path's first use; the adjacency stays a host plane (the
-traversal slice, ROADMAP.md Queue A14, has no device reader yet). A flat
-query reads vectors, flags and codes from ONE locked sync
-(``flat_snapshot``), so it never pairs the codes of one sync with the flags
-of another. Once on the device the codes are never rewritten: a vacuumed
-row's codes stay stale there under exists=False, as its vectors do.
+device on the flat path's first use, the adjacency (i32[cap_pad, R]) on the
+first traversal (``adjacency_dev``). A flat or graph query reads vectors,
+flags and codes from ONE locked sync (``flat_snapshot``), so it never pairs
+the codes of one sync with the flags of another. Once on the device the
+codes and the adjacency are never rewritten: a vacuumed row's codes and
+edges stay stale there under exists=False, as its vectors do (its distance
+is +inf in every scan, so a traversal never expands it), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -130,6 +132,7 @@ class Segment:
         self._xn2_src: Optional[torch.Tensor] = None
         self._codes_dev: Optional[torch.Tensor] = None
         self._codebook_dev: Optional[torch.Tensor] = None
+        self._adjacency_dev: Optional[torch.Tensor] = None
         # (row ids, alive value, exists value) batches: tombstones queue
         # (ids, False, True), physical clears queue (ids, False, False)
         self._pending_flag_updates: list[tuple[np.ndarray, bool, bool]] = []
@@ -274,6 +277,7 @@ class Segment:
         with self._dev_lock:
             self._codes_dev = None
             self._codebook_dev = None
+            self._adjacency_dev = None
 
     def device_resident_bytes(self) -> int:
         """Device bytes held by this segment's mirrors (reads the private
@@ -283,7 +287,7 @@ class Segment:
                 a.numel() * a.element_size()
                 for a in (
                     self._vectors_dev, self._alive_dev, self._exists_dev,
-                    self._codes_dev, self._codebook_dev,
+                    self._codes_dev, self._codebook_dev, self._adjacency_dev,
                 )
                 if a is not None
             )
@@ -296,6 +300,7 @@ class Segment:
             self._exists_dev = None
             self._codes_dev = None
             self._codebook_dev = None
+            self._adjacency_dev = None
             self._dev_rows = 0
             self._pending_flag_updates.clear()
 
@@ -416,6 +421,15 @@ class Segment:
             if self._codebook_dev is None and self.codebook_np is not None:
                 self._codebook_dev = self._put(self.codebook_np)
             return self._codebook_dev
+
+    @property
+    def adjacency_dev(self) -> Optional[torch.Tensor]:
+        """The sealed graph i32[cap_pad, R] on the device (uploaded on the
+        first traversal); None before the seal."""
+        with self._dev_lock:
+            if self._adjacency_dev is None and self.adjacency_np is not None:
+                self._adjacency_dev = self._put(self.adjacency_np)
+            return self._adjacency_dev
 
     def warm_device(self) -> None:
         """Materializes every device mirror now (the planes, their squared

@@ -5,11 +5,10 @@ stack into
 
   vectors  f32[S, N, D]   exists/alive bool[S, N]   (sealed; exact mode)
   + codes  u8[S, N, M]    codebooks f32[S, M, K, sub] (sealed, ``pq=True``:
-                                                     the unified flat route)
+                                                     the unified routes)
+  + adjacency i32[S, N, R] (stacked on first use: the graph routes)
   vectors  f32[S_pad*N, D] alive bool[S_pad*N]     (brute force, flattened)
 
-(the graph plane of full sealed stacks belongs to the traversal slice,
-ROADMAP.md Queue A14).
 so all sealed segments of a power-of-two subgroup are searched by one pool
 and all brute-force segments by one product.
 
@@ -74,6 +73,34 @@ class SealedStack:
         self.vectors = _pad_dim(torch.stack([sn.vectors for sn in snaps]))
         self.exists = torch.stack([sn.exists for sn in snaps])
         self.alive = torch.stack([sn.alive for sn in snaps])
+        self._adjacency = None
+        self._adjacency_global = None
+
+    @property
+    def adjacency(self) -> torch.Tensor:
+        """The members' graphs i32[S, N, R] (segment-local ids), stacked on
+        first use: only the graph routes read them."""
+        with self._lock:
+            if self._adjacency is None:
+                self._adjacency = torch.stack(
+                    [s.adjacency_dev for s in self.segments])
+            return self._adjacency
+
+    @property
+    def adjacency_global(self) -> torch.Tensor:
+        """The flattened adjacency with GLOBAL ids (row s*N + v): the union
+        of the members' graphs as one disconnected graph, for the unified
+        graph route."""
+        adj = self.adjacency
+        with self._lock:
+            if self._adjacency_global is None:
+                s_count, n, r = adj.shape
+                offs = (torch.arange(s_count, dtype=torch.int32,
+                                     device=adj.device) * n)[:, None, None]
+                self._adjacency_global = torch.where(
+                    adj >= 0, adj + offs, -1
+                ).reshape(s_count * n, r)
+            return self._adjacency_global
 
     def refresh_flags(self) -> None:
         """Re-stacks ONLY the bool flag planes when members' tombstone state
