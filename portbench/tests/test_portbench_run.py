@@ -1,0 +1,95 @@
+"""Whole runs of every cell at a tiny size on the CPU (the harness's look for
+a card skipped): the port comes out correct; the control, and the port with
+its timed path broken underneath, do not."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from portbench import spec
+from portbench.tests import faults
+from portbench.tests.conftest import run_tiny, tiny
+
+CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]]
+KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_port_is_correct_and_the_line_has_its_keys(name):
+    res = run_tiny(tiny(name))
+    assert list(res) == KEYS  # the checks come last
+    assert res["correct"], res["checks"]
+    assert res["attempted"] > 0 and res["failed"] == 0
+    assert set(res["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
+    cell = tiny(name)
+    want = {m["name"] for m in cell.end_to_end}
+    # seal_s needs seals the harness times; every other metric is there
+    assert set(res["metrics"]) <= want and "setup_s" in res["metrics"]
+    assert len(res["metrics"]) >= min(2, len(want))
+    for m in res["metrics"].values():
+        assert np.isfinite(m["value"]) and m["value"] > 0
+    json.dumps(res)
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_control_is_not_correct(name):
+    res = run_tiny(tiny(name), system="control")
+    assert not res["correct"]
+    assert res["checks"]["dist_err"]["value"] > res["checks"]["dist_err"]["limit"]
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_an_altered_answer_is_caught(name, monkeypatch):
+    faults.install("swap_ends", monkeypatch.setattr)
+    res = run_tiny(tiny(name))
+    c = res["checks"]["dist_err"]
+    assert not res["correct"] and c["value"] > c["limit"]
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_half_the_batch_left_out_is_caught(name, monkeypatch):
+    faults.install("half_batch", monkeypatch.setattr)
+    res = run_tiny(tiny(name))
+    assert not res["correct"] and res["checks"]["miss"]["value"] > 0.2
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_a_segment_left_out_is_caught(name, monkeypatch):
+    faults.install("segment_out", monkeypatch.setattr)
+    res = run_tiny(tiny(name))
+    c = res["checks"]["miss"]
+    assert not res["correct"] and c["value"] > c["limit"]
+
+
+def test_deletes_left_unapplied_are_caught(monkeypatch):
+    """A write step that returns the state unchanged: deletes acknowledged
+    and never applied."""
+    faults.install("deletes_unapplied", monkeypatch.setattr)
+    cell = tiny("deep10m.churn")
+    cell.traffic["writer"]["delete_from"] = 0.0  # delete the rows queries near
+    cell.traffic["writer"].update(deletes=200, adds=20)
+    res = run_tiny(cell, seconds=2.0)
+    assert not res["correct"] and res["checks"]["bad_rows"]["value"] > 0
+
+
+def test_adds_left_unapplied_are_caught(monkeypatch):
+    """Adds acknowledged (with gids no row holds) and never made searchable."""
+    faults.install("adds_unapplied", monkeypatch.setattr)
+    cell = tiny("deep10m.churn")
+    cell.traffic["writer"].update(adds=400, deletes=1)
+    res = run_tiny(cell, seconds=2.0)
+    assert not res["correct"] and res["checks"]["miss"]["value"] > 0
+
+
+def test_without_a_card_the_command_fails_and_prints_nothing():
+    root = spec.ROOT
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", "portbench.run", "--workload", CELLS[0],
+         "--seed", str(2**31 + 1), "--seconds", "1", "--trace", "0"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and out.stdout == ""
