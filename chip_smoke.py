@@ -11,10 +11,11 @@ result):
 2. build: compiles the hand-written kernels (vectorsearch_torch/csrc/*.cu,
    one nvcc per source, all started together) for sm_90a from the checkout,
    prints each kernel's registers and spills (the ADC kernels one line per
-   form, line width and FULL flag), and counts the warpgroup MMA (HGMMA)
-   instructions in the SASS (cuobjdump) of every instantiation of the exact
-   pools' shared kernel, B1's and B2's: none in any of them, or no
-   instantiation of either, fails;
+   form, line width and FULL flag; B2's pipelined form one line per query
+   tile, a spill fails), and counts the warpgroup MMA (HGMMA) instructions
+   in the SASS (cuobjdump) of every instantiation of the exact pools'
+   kernels, B1, B2's streamed form and B2's pipelined form: none in any of
+   them, or no instantiation of one, fails;
 3. kernel vs plain on the card:
    - the exact-pool kernel (B1) at every shape a sift1m exact batch gives it
      (Q 512, D 128, L2: the 8-segment group, N 800,768, fold 8; the
@@ -31,7 +32,11 @@ result):
      group over all 128), a cosine case with a zero-norm row, a tail case
      with dead bins and fold 1 and an explicit tile 512, fold 2 geometry;
      the packed planes compare level by level (within one quantization
-     step) and slot by slot, then the decoded top-k;
+     step) and slot by slot, then the decoded top-k; each check names the
+     form the launch took (the registry's counter); then B2's timings (the
+     kernel at the Deep10M subgroups' shapes, its plain version over 64
+     queries, torch.matmul, its bound and 3xTF32 ceiling, and the pipelined
+     form's registers and spills beside them; phase 5 lists what);
    - the ADC kernels (B3 pool, B4 scores, B5 scan, B5 precise scan) at the
      sift1m segment shape (Q 512, M 16, K 256, N 100,096), a segment under
      16,384 rows (N 10,112), a tail case (N 50,123, ~2% valid rows, dead
@@ -116,8 +121,8 @@ result):
    batch, top kernels (full tables in _profiles/chip_smoke_profile.txt,
    git-ignored); unified flat, graph and small-segment flat are profiled
    over the five one-client batches only;
-5. timings at the sift1m shapes (B2: the Deep10M subgroups' shapes, its
-   plain version over 64 queries): each kernel, its plain version, one
+5. timings at the sift1m shapes (B2's, at the Deep10M subgroups' shapes,
+   taken in phase 3): each kernel, its plain version, one
    PyTorch call computing the same function where there is one (the library
    yardstick; the port never calls it) and the card's bound; for the four
    ADC kernels also their lookup ceiling (the shared-memory bank reads of
@@ -250,16 +255,41 @@ def _build_all():
         return dict(pool.map(one, sources))
 
 
-_PACKED_FLAG = re.compile(
-    r"exact_pool_tc_kernel(?:<\d+, \w+, (\w+)>|ILi\d+ELb[01]ELb([01])E)")
+_EXACT_FORM = re.compile(
+    r"exact_pool_(?:tc_kernel(?:<\d+, \w+, (\w+)>|ILi\d+ELb[01]ELb([01])E)"
+    r"|pipelined_kernel(?:<(\d+)>|ILi(\d+)E))")
+_EXACT_FORMS = ("B1", "B2 streamed", "B2 pipelined")
 
 
-def _packed_flag(name):
-    """B2's PACKED flag, the last template argument of exact_pool_tc_kernel
-    (B1 and B2 are its instantiations), read from a demangled or mangled
-    kernel name; None for a name that is no instantiation of it."""
-    m = _PACKED_FLAG.search(name)
-    return None if m is None else (m.group(1) or m.group(2)) in ("true", "1")
+def _exact_form(name):
+    """(form, NQW) of an exact-pool kernel from its demangled or mangled
+    name: B1 or B2's streamed form (exact_pool_tc_kernel, its PACKED flag
+    the last template argument; NQW None) or B2's pipelined form
+    (exact_pool_pipelined_kernel<NQW>); None for any other name."""
+    m = _EXACT_FORM.search(name)
+    if m is None:
+        return None
+    if m.group(3) or m.group(4):
+        return "B2 pipelined", int(m.group(3) or m.group(4))
+    packed = (m.group(1) or m.group(2)) in ("true", "1")
+    return ("B2 streamed" if packed else "B1"), None
+
+
+def _pipelined_ptxas(compiler_out):
+    """{NQW: (registers, spill store bytes)} of every instantiation of B2's
+    pipelined form, from nvcc's ptxas -v output."""
+    out, nqw, spill = {}, None, None
+    for line in compiler_out.splitlines():
+        if "Compiling entry" in line:
+            form = _exact_form(line)
+            nqw = form[1] if form and form[0] == "B2 pipelined" else None
+            spill = None
+        elif nqw is not None and "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif nqw is not None and "Used" in line and "registers" in line:
+            out[nqw] = (int(line.split("Used", 1)[1].split("registers")[0]), spill)
+            nqw = None
+    return out
 
 
 _ADC_KERNEL = re.compile(
@@ -490,6 +520,20 @@ def _deep_case(name, segs, *, seed, alive_frac=0.98, qn=512):
     return dict(name=name, q=q.contiguous(), x=x, valid=valid, metric="L2")
 
 
+def _packed_forms(exact_ops, registry):
+    """{form: B2 launches so far} from the port's registry counter."""
+    return {f: registry.counter_value(exact_ops.PACKED_LAUNCHES, {"form": f})
+            for f in ("pipelined", "streamed")}
+
+
+def _form_taken(before, after):
+    """The one form whose count grew between two readings of _packed_forms."""
+    grew = [f for f in before if after[f] > before[f]]
+    if len(grew) != 1:
+        raise AssertionError(f"B2 forms counted: {before} -> {after}")
+    return grew[0]
+
+
 def _check_packed(case, exact_ops, traversal_ops, *, plain_q=None, tile_n=None,
                   fold=None, d_live=None):
     """The packed kernel vs its plain version on one case (the plain side
@@ -505,10 +549,14 @@ def _check_packed(case, exact_ops, traversal_ops, *, plain_q=None, tile_n=None,
     import torch
 
     q, x, valid, metric = case["q"], case["x"], case["valid"], case["metric"]
+    from vectorsearch_torch.utils.metrics import get_registry
+
     q_in, aux, mult, qn2, step, geom = exact_ops.packed_pool_inputs(
         q, x, valid, metric, tile_n=tile_n, fold=fold, d_live=d_live
     )
+    forms = _packed_forms(exact_ops, get_registry())
     kp = exact_ops.exact_pool_packed_cuda(q_in, x, aux, mult, qn2, **geom)
+    form = _form_taken(forms, _packed_forms(exact_ops, get_registry()))
     nq = q.shape[0] if plain_q is None else plain_q
     pp = exact_ops.exact_pool_packed_plain(
         q_in[:nq].contiguous(), x, aux, mult[:nq].contiguous(),
@@ -568,7 +616,7 @@ def _check_packed(case, exact_ops, traversal_ops, *, plain_q=None, tile_n=None,
     if mismatch:
         raise AssertionError(f"{case['name']}: {mismatch} final top-k ids differ")
     report = (
-        f"{case['name']}: Q={q.shape[0]} (plain over {nq}) N={x.shape[0]} "
+        f"{case['name']}: {form} form, Q={q.shape[0]} (plain over {nq}) N={x.shape[0]} "
         f"d_live={geom['d_live']} W={geom['w']} tile={geom['tile']} "
         f"fold={geom['fold']} F={int(f)} "
         f"max_level_diff={level_diff} slot_differs={int(differ.sum())}/"
@@ -1881,7 +1929,8 @@ def _deep10m(tvs, exact_ops, tag, launches, tables):
             return sum(_device_us(e) for e in dev if pred(e.key)) / 1e6 / wall
 
         def pool(key, packed):
-            return _packed_flag(key) is packed
+            form = _exact_form(key)
+            return form is not None and (form[0] != "B1") is packed
 
         top = sorted(dev, key=_device_us, reverse=True)[:8]
         _log(f"deep10m churn profile {tag}: 8 clients and the writer, "
@@ -2161,8 +2210,10 @@ def _chunk_candidates(case, adc_ops, rounds=3):
     return times
 
 
-def _packed_timings(exact_ops, peaks, tag):
-    """B2 at the Deep10M subgroups' shapes: the kernel as the index calls it
+def _packed_timings(exact_ops, peaks, tag, pipe_regs):
+    """B2 at the Deep10M subgroups' shapes (the form each launch took, from
+    the registry's counter, and the pipelined form's ptxas registers and
+    spills, `pipe_regs`, beside them): the kernel as the index calls it
     (the 96 live features of the 128-wide rows) and over all 128, its plain
     version over a 64-query slice (stated; the full [512, N] plain block
     takes 16 GB at the 8-segment group), torch.matmul of the same product
@@ -2174,6 +2225,10 @@ def _packed_timings(exact_ops, peaks, tag):
     D, and the 3xTF32 ceilings (three TF32 passes at the TF32 peak)."""
     import torch
 
+    from vectorsearch_torch.utils.metrics import get_registry
+
+    regs = ", ".join(f"NQW {k}: {r} registers, {sp} bytes spilled"
+                     for k, (r, sp) in sorted(pipe_regs.items()))
     out = {}
     for segs in (8, 2):
         case = _deep_case(f"deep {segs}", segs, seed=30 + segs)
@@ -2181,10 +2236,14 @@ def _packed_timings(exact_ops, peaks, tag):
         q_in, aux, mult, qn2, _step, geom = exact_ops.packed_pool_inputs(
             q, x, valid, "L2", d_live=96)
         iters = 5 if segs == 8 else 10
+        before = _packed_forms(exact_ops, get_registry())
         ms = _time_ms(lambda: exact_ops.exact_pool_packed_cuda(
             q_in, x, aux, mult, qn2, **geom), iters)
+        mid = _packed_forms(exact_ops, get_registry())
         ms_pad = _time_ms(lambda: exact_ops.exact_pool_packed_cuda(
             q_in, x, aux, mult, qn2, **dict(geom, d_live=None)), iters)
+        forms = (_form_taken(before, mid),
+                 _form_taken(mid, _packed_forms(exact_ops, get_registry())))
         s = slice(0, 64)
         plain64 = _time_ms(lambda: exact_ops.exact_pool_packed_plain(
             q_in[s].contiguous(), x, aux, mult[s].contiguous(),
@@ -2204,17 +2263,18 @@ def _packed_timings(exact_ops, peaks, tag):
                 by="operations" if ops_ms >= bytes_ms else "bytes")
         live, pad = line[96], line[128]
         _log(f"timing exact_pool_packed {tag}: Q {qn} x N {n:,} x D 128 "
-             f"(fold {geom['fold']}, W {w:,}): kernel over the 96 live "
-             f"features {ms:.3f} ms ({live['flops'] / ms / 1e9:.1f} useful "
+             f"(fold {geom['fold']}, W {w:,}): kernel ({forms[0]} form) over "
+             f"the 96 live features {ms:.3f} ms ({live['flops'] / ms / 1e9:.1f} useful "
              f"TFLOP/s; 3xTF32 ceiling {live['tf32_ms']:.3f} ms; bound "
              f"{live['bound']:.3f} ms, operations {live['ops_ms']:.3f} ms as 3 "
              f"split-bf16 passes of {live['flops'] / 1e12:.3f} TFLOP, bytes "
-             f"{live['bytes_ms']:.3f} ms), over all 128 {ms_pad:.3f} ms "
+             f"{live['bytes_ms']:.3f} ms), over all 128 ({forms[1]} form) "
+             f"{ms_pad:.3f} ms "
              f"({pad['flops'] / ms_pad / 1e9:.1f} useful TFLOP/s; 3xTF32 "
              f"ceiling {pad['tf32_ms']:.3f} ms; bound {pad['bound']:.3f} ms); "
              f"plain over 64 queries {plain64:.3f} ms; torch.matmul of the "
              f"same product over the 96 live columns {lib:.3f} ms, over all "
-             f"128 {lib_pad:.3f} ms")
+             f"128 {lib_pad:.3f} ms; ptxas of the pipelined form: {regs}")
         key = "" if segs == 8 else "_2seg"
         out.update({
             f"ms{key}": ms, f"ms_padded{key}": ms_pad,
@@ -2223,6 +2283,7 @@ def _packed_timings(exact_ops, peaks, tag):
             f"bound_padded_ms{key}": pad["bound"],
         })
         out.setdefault("bound_by", live["by"])
+        out.setdefault("form", forms[0])
         del case, q, x, valid, q_in, aux
         torch.cuda.empty_cache()
     out["plain_queries"] = 64
@@ -2290,22 +2351,35 @@ def main() -> int:
     cuda_build.load("exact_pool_tc", exact_ops._bind_tc)
     adc_ops._load_kernel()
     _log(f"build {tag}: every library in {time.time() - t0:.1f} s")
+    # B2's pipelined form: 168 registers at launch (setmaxnreg hands the
+    # consumers 240), no spill; a library built before this run printed no
+    # ptxas lines
+    pipe_regs = _pipelined_ptxas(built["exact_pool_tc"][1])
+    for nqw, (regs, spill) in sorted(pipe_regs.items()):
+        _log(f"  ptxas {tag}: B2 pipelined NQW {nqw}: {regs} registers, "
+             f"{spill} bytes spill stores")
+    if not built["exact_pool_tc"][1]:
+        _log(f"  ptxas {tag}: exact_pool_tc was built before this run, "
+             "no ptxas lines to check")
+    elif not pipe_regs or any(sp != 0 for _r, sp in pipe_regs.values()):
+        raise AssertionError(
+            f"exact_pool_pipelined_kernel: spills or no instantiation: {pipe_regs}")
     # B1 and B2 run on the tensor cores: warpgroup MMA in each instantiation
-    # of their kernel (its last template argument is B2's PACKED flag)
-    mmas = _warpgroup_mmas(built["exact_pool_tc"][0], "exact_pool_tc_kernel")
+    # of both kernels (B1, B2 streamed, B2 pipelined)
+    mmas = _warpgroup_mmas(built["exact_pool_tc"][0], "exact_pool_")
     for fn, n in sorted(mmas.items()):
         _log(f"sass {tag}: {fn}: {n} HGMMA")
-    flags = {fn: _packed_flag(fn) for fn in mmas}
-    if None in flags.values():
+    forms = {fn: _exact_form(fn) for fn in mmas}
+    if None in forms.values():
         raise AssertionError(
-            f"exact_pool_tc_kernel: no PACKED flag in "
-            f"{[fn for fn, f in flags.items() if f is None]}")
-    for flag, kname in ((False, "B1"), (True, "B2")):
-        mine = [n for fn, n in mmas.items() if flags[fn] is flag]
+            f"exact pool: no form read from "
+            f"{[fn for fn, f in forms.items() if f is None]}")
+    for kname in _EXACT_FORMS:
+        mine = [n for fn, n in mmas.items() if forms[fn][0] == kname]
         if not mine or min(mine) == 0:
             raise AssertionError(
-                f"exact_pool_tc_kernel: {kname} has an instantiation without "
-                f"HGMMA instructions, or none: {mmas}")
+                f"exact pool: {kname} has an instantiation without HGMMA "
+                f"instructions, or none: {mmas}")
 
     # 3. kernel vs plain version on the card (launches here are comparisons;
     # the counts are set to 0 before each run of phase 4)
@@ -2359,6 +2433,9 @@ def main() -> int:
         max_level_diff = max(max_level_diff, level)
         _log(f"kernel vs plain {tag}: packed {report}")
         torch.cuda.empty_cache()
+    # B2's timings at the Deep10M subgroups' shapes (in the kernels line)
+    packed_times = _packed_timings(exact_ops, peaks, tag, pipe_regs)
+    torch.cuda.empty_cache()
     adc_cases = [
         _adc_case("ADC sift1m segment", 100_096, seed=11, pad_from=100_000),
         _adc_case("ADC segment under 16,384 rows", 10_112, seed=12,
@@ -2643,7 +2720,7 @@ def main() -> int:
         ms_mesh_shard=mesh_ms, plain_ms_mesh_shard=mesh_plain_ms,
         library_ms_mesh_shard=mesh_lib_ms, bound_ms_mesh_shard=mesh_bound_ms,
     )}
-    timings["exact_pool_packed"] = _packed_timings(exact_ops, peaks, tag)
+    timings["exact_pool_packed"] = packed_times
     adc_times, adc_extra = _adc_timings(adc_sift, adc_ops, peaks)
     timings.update(adc_times)
     for kname in _ADC_NAMES:

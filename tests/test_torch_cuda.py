@@ -32,6 +32,7 @@ import torch
 import vectorsearch_torch as tvs
 from vectorsearch_torch.ops import adc as ta
 from vectorsearch_torch.ops import exact as te
+from vectorsearch_torch.utils.metrics import get_registry
 
 pytestmark = pytest.mark.cuda
 
@@ -99,47 +100,76 @@ def test_kernel_matches_plain(cuda, rng, metric, n, tile, fold, d, qn, scale):
 
 
 @pytest.mark.parametrize("metric", ["L2", "COSINE"])
-@pytest.mark.parametrize("n,tile,fold,d,d_live,qn", [
-    (3 * 512 + 123, 512, 2, 128, None, 100),
-    (5 * 512 + 77, 512, 4, 128, None, 100),
-    (50_123, None, None, 128, None, 100),
+@pytest.mark.parametrize("n,tile,fold,d,d_live,qn,dead,form", [
+    (3 * 512 + 123, 512, 2, 128, None, 100, None, "pipelined"),
+    (5 * 512 + 77, 512, 4, 128, None, 100, None, "pipelined"),
+    (50_123, None, None, 128, None, 100, None, "pipelined"),
     # query tiles of 8, 64 and 128 (partial at 40)
-    (50_123, None, None, 128, None, 8),
-    (50_123, None, None, 128, None, 40),
-    (50_123, None, None, 128, None, 512),
+    (50_123, None, None, 128, None, 8, None, "pipelined"),
+    (50_123, None, None, 128, None, 40, None, "pipelined"),
+    (50_123, None, None, 128, None, 512, None, "pipelined"),
     # fold 1, and fold 8 over three groups (the last one partial)
-    (50_123, None, 1, 128, None, 40),
-    (40_000, None, 8, 128, None, 512),
+    (50_123, None, 1, 128, None, 40, None, "pipelined"),
+    (40_000, None, 8, 128, None, 512, None, "pipelined"),
     # Deep10M's rows: 96 live features lane-padded to 128, the pad skipped
-    (50_123, None, None, 128, 96, 512),
-    # a live width whose last 16-byte copy is part zero-filled
-    (20_123, None, None, 128, 98, 40),
-    # widths that are no multiple of 32: 16-byte copies, and 4-byte ones
-    (50_123, None, None, 100, None, 100),
-    (20_123, None, None, 99, None, 40),
+    (50_123, None, None, 128, 96, 512, None, "pipelined"),
+    # a live width whose last 32-feature stage is part zero-filled
+    (20_123, None, None, 128, 98, 40, None, "pipelined"),
+    # widths that are no multiple of 32: a tensor map's zero fill, and a
+    # row stride no multiple of 16 bytes (streamed, 4-byte copies)
+    (50_123, None, None, 100, None, 100, None, "pipelined"),
+    (20_123, None, None, 99, None, 40, None, "streamed"),
     # the streamed query tile (rows too wide for resident planes)
-    (20_123, None, None, 3072, None, 100),
+    (20_123, None, None, 3072, None, 100, None, "streamed"),
+    # the pipelined form at the batch sizes a client sends: one query, a
+    # ragged 77, 128 and 513 (a last tile of one query), at dl 96 of 128
+    (5 * 512 + 77, 512, 4, 128, 96, 1, None, "pipelined"),
+    (50_123, None, None, 128, 96, 77, None, "pipelined"),
+    (50_123, None, None, 128, 96, 128, None, "pipelined"),
+    (50_123, None, None, 128, 96, 513, None, "pipelined"),
+    # a last group of 40 rows: its second 64-column block lies past N
+    (3 * 512 + 40, 512, 1, 128, None, 77, None, "pipelined"),
+    # N ragged against tile and fold: two full groups of 8 tiles, then three
+    # tiles and 700 rows
+    (2 * 8 * 2048 + 3 * 2048 + 700, None, 8, 128, 96, 512, None, "pipelined"),
+    # dead bins: every row of one group invalid (dl = D, and dl 96)
+    (40_000, None, 8, 128, None, 512, 1, "pipelined"),
+    (40_000, None, 2, 128, 96, 77, 0, "pipelined"),
 ])
 def test_packed_kernel_matches_plain(cuda, rng, metric, n, tile, fold, d,
-                                     d_live, qn):
+                                     d_live, qn, dead, form):
     x = rng.normal(size=(n, d)).astype(np.float32)
     x[7] = 0.0
     q = rng.normal(size=(qn, d)).astype(np.float32)
     if d_live is not None:
         x[:, d_live:] = 0.0
     valid = rng.random(n) > 0.1
+    if dead is not None:
+        g_tile, _bins, g_fold, _w = te._stage1_params(qn, d, n, tile, fold, 16384)
+        span = g_tile * g_fold
+        valid[dead * span:(dead + 1) * span] = False
     args = [torch.from_numpy(a).to(cuda) for a in (q, x, valid)]
     q_in, aux, mult, qn2, _step, geom = te.packed_pool_inputs(
         *args, metric=metric, tile_n=tile, fold=fold, d_live=d_live)
     assert geom["d_live"] == (d if d_live is None else d_live)
+    registry = get_registry()
+    forms = {f: registry.counter_value(te.PACKED_LAUNCHES, {"form": f})
+             for f in ("pipelined", "streamed")}
     before = te.exact_pool_packed_cuda.launches
     kp = te.exact_pool_packed_cuda(q_in, args[1], aux, mult, qn2, **geom)
     assert te.exact_pool_packed_cuda.launches == before + 1
+    # the form the kernel took, by the registry's counter
+    assert {f: registry.counter_value(te.PACKED_LAUNCHES, {"form": f}) - v
+            for f, v in forms.items()} == {
+        f: float(f == form) for f in forms}
     pp = te.exact_pool_packed_plain(q_in, args[1], aux, mult, qn2, **geom)
     torch.cuda.synchronize()
     kp, pp = kp.cpu().numpy(), pp.cpu().numpy()
     live = np.isfinite(pp)
     np.testing.assert_array_equal(np.isfinite(kp), live)
+    if dead is not None:
+        bins = geom["bins"]
+        assert not live[:, dead * bins:(dead + 1) * bins].any()
     f = geom["slot_f"]
     kl, pl = np.floor(kp[live] / f), np.floor(pp[live] / f)
     assert np.abs(kl - pl).max() <= 1

@@ -2,8 +2,11 @@
 // of the TPU kernels vectorsearch_tpu/ops/pallas/exact.py::_pool_kernel
 // (B1, reached through exact_bin_pool; launched through exact_pool_launch
 // below) and ::_packed_pool_kernel (B2, reached through
-// exact_bin_pool_packed; launched through exact_pool_packed_launch). One
-// mainloop serves both: the template flag PACKED picks B2's epilogue.
+// exact_bin_pool_packed; launched through exact_pool_packed_launch). Two
+// mainloops serve them: exact_pool_tc_kernel (B1, and B2's streamed form
+// through its PACKED flag) and exact_pool_pipelined_kernel (B2's resident
+// form). They share no mainloop logic, only the small helpers (the TF32
+// split, the wgmma wrappers, the descriptors, the query planes' layout).
 //
 // B1's function (the TPU kernel's, so the two pools compare directly): for
 // each query q and each pool column (group g, bin b), the max over the rows
@@ -50,62 +53,118 @@
 // form would run twice the tensor rate on paper, but errs by up to ~1.1e-5 x
 // 2|q||x|, the edge of B1's tolerance. Three TF32 passes at 495 TFLOP/s put
 // B1's ceiling at ~0.64 ms for the sift1m shape, B2's at ~4.8 ms for the
-// Deep10M one.
+// Deep10M one. B2 also sums each 32-feature chunk's products apart and adds
+// the chunks in registers (CHUNK_SUM below): the tensor cores round each
+// MMA's sum into the accumulator toward zero, so accumulated inside the MMAs
+// over a slice the error grows with the running sum past B2's quantization
+// step (up to 2-3 levels at F 8 over 128 features;
+// tests/test_torch_exact_packed.py emulates it).
 //
-// Design:
-// - The product runs on the tensor cores, as warpgroup MMA (wgmma m64nNk8
-//   TF32) with x in registers as the A operand and the query tile in shared
-//   memory as B.
-// - x arrives by cp.async (16-byte copies, zero-filled past N and past dl;
-//   4-byte copies when rows are not 16-byte aligned) into rings of 32
-//   features a stage (B1 4 stages, B2 3), whose padded row stride (36
-//   floats) makes every fragment load conflict-free. Each warpgroup has a
-//   ring of its own 64 rows and its own named barrier, one wait per stage
-//   with the next stages' copies in flight, so the two warpgroups drift
-//   apart and one's epilogue and fragment splits overlap the other's MMAs
-//   (faster on the card than one ring of 128 rows under block barriers).
-// - The query tile is split into big and small once, at block start, into
-//   two shared-memory planes in wgmma's K-major layout (no swizzle: 8x4 core
-//   matrices of 128 contiguous bytes), where it stays for all of the block's
-//   slices.
-// The grid is (query tile of NQ <= 128, 128 pool columns of one group). A
-// block's two warpgroups take rows 0-63 and 64-127 of each 128-row slice
-// (slice sl of the block is rows group_row0 + sl*bins + b0 .. +127, so
-// accumulator row i of every slice belongs to bin b0 + i). The running
-// (max, slice) of each (row, query) pair lives in registers in the
-// accumulator's own fragment layout, so a slice's epilogue is elementwise:
-// take off the column term, keep score and slice on `>`. Slices ascend, so
-// the smallest row wins a tie. B1's slice indices (in the group) are 16
-// bits, two per register; B2's (in the tile: a < tile/bins <= 16, and the
-// packed slot is j * tile/bins + a) are 4 bits, eight per register.
-// B2's running packed maxima would be a fourth register plane (64 more
-// registers a thread at NQ 128, beside B1's 244): they live in shared memory
-// instead, NQ/2 values of each thread (64 KB at NQ 128), read and written
-// once per tile (every tile/bins slices) by the thread that owns them, so
-// its tile epilogue compresses its (max, slice), merges it (the group's
-// first tile writes) and starts the next tile afresh; the block writes the
-// plane out at its end. (Merged into the output in device memory instead,
-// the reads stalled the tile epilogues; with 16-bit slice indices, or with
-// both places behind a runtime switch, the NQ 128 form spilled registers.)
-// B2 gives a ring stage up for that plane. B2 also sums each 32-feature
-// chunk's products apart and adds the chunks in registers (CHUNK_SUM
-// below), which keeps its packed levels within one step of a full-f32
-// product; at 128 queries a tile its MMAs run as two halves of 64 queries
-// in turn to make room for that plane.
-// blockIdx.x is the query tile, so the query tiles of one column block run
-// side by side and x is read from device memory about once. Features are
-// taken in whole stages of 32 (zero past dl). NQ is the power of two up to
-// 128 that Q needs. Its resident planes take 2 * NQ * ceil32(dl) * 4 bytes
-// beside the rings (B1 72 KB; B2 54 KB and its 64 KB packed plane): B1
-// takes dl up to 128 at NQ 128, 288 at NQ 64, 576 at NQ 32; B2 96 at NQ
-// 128, 256 at NQ 64, 608 at NQ 32. NQ halves (not below 32, or what Q
-// needs) until they fit. Wider rows take the streamed form (SQ): each ring
-// stage also brings the query tile's 32 features of that step, which the
+// Both mainloops put the product on the tensor cores as warpgroup MMA
+// (wgmma m64nNk8 TF32) with x in registers as the A operand (split into big
+// and small by the consumer threads) and the query tile in shared memory as
+// B, split once into two planes in wgmma's K-major layout (no swizzle: 8x4
+// core matrices of 128 contiguous bytes). A block takes 128 (B1) or 64 (B2
+// pipelined) pool columns of one group and walks the group's row slices
+// (slice sl is rows group_row0 + sl*bins + b0 .., so accumulator row i of
+// every slice belongs to bin b0 + i). The running (max, slice) of each
+// (row, query) pair lives in registers in the accumulator's own fragment
+// layout, so a slice's epilogue is elementwise: take off the column term,
+// keep score and slice on `>`. Slices ascend, so the smallest row wins a
+// tie. B1's slice indices (in the group) are 16 bits, two per register;
+// B2's (in the tile: a < tile/bins <= 16, and the packed slot is
+// j * tile/bins + a) are 4 bits, eight per register. B2's running packed
+// maxima live in shared memory (NQ/2 values of each consumer thread), read
+// and written once per tile (every tile/bins slices) by the thread that owns
+// them: its tile epilogue compresses its (max, slice), merges it (the
+// group's first tile writes) and starts the next tile afresh; the block
+// writes the plane out at its end. blockIdx.x is the query tile in both, so
+// the query tiles of one column block run side by side and x is read from
+// device memory about once.
+//
+// B1 (exact_pool_tc_kernel): x arrives by cp.async (16-byte copies,
+// zero-filled past N and past dl; 4-byte copies when rows are not 16-byte
+// aligned) into rings of 32 features a stage (4 stages), whose padded row
+// stride (36 floats) makes every fragment load conflict-free. Each of the
+// block's two warpgroups has a ring of its own 64 rows of the 128-row slice
+// and its own named barrier, one wait per stage with the next stages'
+// copies in flight, so the two warpgroups drift apart and one's epilogue
+// and fragment splits overlap the other's MMAs. A warpgroup waits for its
+// MMAs at every chunk (wgmma.wait_group 0) before its epilogue. NQ is the
+// power of two up to 128 that Q needs; the resident planes take
+// 2 * NQ * ceil32(dl) * 4 bytes beside the rings (72 KB): dl up to 128 at NQ
+// 128, 288 at NQ 64, 576 at NQ 32. NQ halves (not below 32, or what Q needs)
+// until they fit. Wider rows take the streamed form (SQ): each ring stage
+// also brings the query tile's 32 features of that step, which the
 // warpgroup splits into planes of its own before its MMAs (one more named
-// barrier per step), at NQ up to 64. Any D runs; the main paths' are 128
-// (B1: resident, NQ 128) and, at Deep10M, dl 96 of 128 (B2: resident,
-// NQ 128).
+// barrier per step), at NQ up to 64. The main path's shape is D 128 (NQ
+// 128, resident). B2's streamed form runs the same loop with a ring of 3
+// stages (its packed plane takes the fourth's room) and CHUNK_SUM.
+//
+// B2 pipelined (exact_pool_pipelined_kernel), its resident form. What bound
+// the shared mainloop at Deep10M (Q 512, N 8,000,512, dl 96: 11.1 ms
+// against its 4.77 ms 3xTF32 ceiling): its 128-query tile needed a
+// 64-register chunk-sum plane beside the running maxima, so its MMAs ran
+// as two halves of 64 queries, each ended by wgmma.wait_group 0, and the
+// fragment splits, the chunk sums and the epilogues never overlapped the
+// warpgroup's own MMAs; its 3-stage cp.async ring spent the consumer
+// threads' instructions on addresses and copies. This form:
+// - One MMA wait a chunk. Each consumer warpgroup takes 64 rows x NQW (up
+//   to 64) queries: one accumulator of NQW/2 registers a chunk, so two
+//   accumulators and two sets of x fragments fit beside the chunk sums and
+//   the running maxima (240 registers a consumer thread through setmaxnreg;
+//   the producer warpgroup keeps 24). Chunk c+1's fragments are split and
+//   its 12 MMAs committed before the warpgroup waits for chunk c's
+//   (wgmma.wait_group 1); chunk c's CHUNK_SUM add, the slice epilogue and
+//   the tile epilogue then run under chunk c+1's MMAs.
+// - A ring of 4 stages filled by TMA. Thread 0 of the producer warpgroup
+//   issues a 2-D tensor copy a stage (64 rows x 32 features of x, box
+//   {32, 64} of the tensor map [N, dl] with row stride D; rows past N and
+//   features past dl arrive as zeros); the lanes of its warp copy the
+//   slice's column terms (aux0, aux1 of the 64 rows, zeros past N) by
+//   cp.async beside it; both complete on the stage's full mbarrier (33
+//   arrivals). Each consumer warp arrives on the stage's empty mbarrier
+//   after the step's epilogue, which reads the column terms last. The
+//   consumers spend no instruction on an address or a copy of x. The
+//   stages are 128-byte swizzled (16-byte unit u of row r at u ^ (r & 7)),
+//   so the fragment loads are conflict-free with one XOR a load address.
+// - The block's two consumer warpgroups share each stage (the same 64 rows
+//   of the slice, each against its own NQW queries), so a block takes
+//   2 * NQW queries, and Q 512 makes 4 query tiles as before: x is read from
+//   L2 four times, from device memory about once.
+// - Fewest instructions a chunk. On the card every instruction that any
+//   warp of the SM issues beside the MMAs lengthens them: the MMAs and the
+//   copies alone ran Deep10M's shape in 6.0 ms; 768 more warp
+//   instructions a chunk (96 FFMAs a consumer thread, or 256 a thread of
+//   the producer's three idle warps) added 1.4-2.4 ms; integer, select and
+//   add chains cost about the same per instruction; and the SM clock rose
+//   meanwhile (so not power). So: the x split in integer
+//   operations (split_tf32_int), the descriptors in uniform registers, the
+//   column terms one FFMA from shared memory, the running max and slice
+//   without branches, the queries' quantization terms staged once a block.
+//   Staging the tile epilogue through shared memory, or sharing each split
+//   between the two warpgroups through shared memory, ran slower: their
+//   loads, stores and barriers cost more than they saved.
+// Shared memory at NQW 64, dl 96 (kq 96), of the block's 232,448 bytes:
+//   ring of x, 4 stages x 8 KB                   32,768
+//   column terms, 4 stages x 2 x 64 x 4 B         2,048
+//   query planes, 2 x 128 queries x 96 x 4 B     98,304
+//   packed plane, 32 values x 256 threads x 4 B  32,768
+//   query terms, 128 queries x 2 x 4 B           1,024
+//   mbarriers, 8 x 8 B                              64
+//   alignment to the swizzle's 1,024-byte period 1,024
+//   total                                       168,000
+// The room came from the padded stride (36 floats to 32: 8 KB a stage where
+// a 64-row stage of B1's takes 9 KB), from sharing each stage between the
+// warpgroups (one ring, not one each) and from the 64-query accumulator
+// tile (the packed plane halves to 32 KB). Up to kq 128 fits at NQW 64,
+// 320 at 32, 704 at 16; NQW halves (not below 16, or what Q needs) until
+// the planes fit. The streamed form keeps the shared mainloop for the rest:
+// rows too wide for resident planes, rows whose stride is no multiple of
+// 16 bytes or x not 16-byte aligned (a tensor map needs both), and more
+// than 65,535 column blocks.
 
+#include <cuda.h>  // the tensor map's types (libcuda is not linked)
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -138,6 +197,21 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& big,
                                            uint32_t& small) {
   big = to_tf32(v);
   small = to_tf32(v - __uint_as_float(big));
+}
+
+// The same split in four integer and float operations (B2 pipelined's hot
+// loop, where every instruction costs tensor-core time): for a finite v,
+// adding half a TF32 unit to the magnitude's bits and clearing the low 13
+// rounds to the nearest TF32 with ties away from zero, bit for bit as
+// cvt.rna (tests/test_torch_exact_pool.py::_tf32_rna). The MMA operands
+// keep their low 13 bits uncleared: the tensor cores ignore them (on the
+// card the planes came out bit-identical to cleared operands). A NaN or
+// infinite feature leaves the row's score NaN or -inf through its column
+// term either way, so such a row never wins.
+__device__ __forceinline__ void split_tf32_int(float v, uint32_t& big,
+                                               uint32_t& small) {
+  big = __float_as_uint(v) + 0x1000u;
+  small = __float_as_uint(v - __uint_as_float(big & 0xFFFFE000u)) + 0x1000u;
 }
 
 // 16 bytes into shared memory, of which the first `bytes` (0-16) come from
@@ -652,11 +726,426 @@ __global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(const PoolArg
   }
 }
 
-template <int NQ, bool SQ, bool PACKED>
-int launch(const PoolArgs& a, cudaStream_t stream) {
-  // each instantiation takes the device's opt-in maximum of shared memory
-  // once per device, so later launches make no other CUDA call
-  static bool ready[64];
+// ------------------------------------------------------- B2 pipelined
+
+constexpr int P_ROWS = 64;    // pool columns a block = rows a slice = wgmma M
+constexpr int P_STAGES = 4;   // ring depth (a power of two)
+constexpr int P_STAGE = P_ROWS * KC;  // floats a stage: one TMA box, 8 KB
+constexpr int P_THREADS = 384;        // the producer warpgroup, two consumers
+constexpr int P_CONSUMERS = 256;
+// registers a thread after setmaxnreg: 128 x 24 + 256 x 240 = 64,512, the
+// 168 a thread that 384 threads launch with
+constexpr int P_PRODUCER_REGS = 24;
+constexpr int P_CONSUMER_REGS = 240;
+
+// Bytes of shared memory of the pipelined form at NQW queries a consumer
+// warpgroup (the head of the file itemizes them).
+size_t pipe_smem_bytes(int nqw, int kq) {
+  return 1024 + sizeof(float) * ((size_t)P_STAGES * (P_STAGE + 2 * P_ROWS) +
+                                 (size_t)2 * 2 * nqw * kq +
+                                 (size_t)nqw / 2 * P_CONSUMERS +
+                                 (size_t)2 * 2 * nqw) +
+         2 * P_STAGES * sizeof(uint64_t);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// Arrives once and adds `bytes` to the phase's expected transaction count.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Arrives once where `lane` is 0 (no branch around it).
+__device__ __forceinline__ void mbar_arrive_lane0(uint32_t bar, int lane) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.eq.s32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+      :: "r"(bar), "r"(lane) : "memory");
+}
+
+// Waits until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra LAB_WAIT;\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
+// A 2-D box of the tensor map at (feature c0, row c1) into shared memory,
+// completed on the barrier.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(bar) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+template <int V>
+struct Buf {
+  static constexpr int value = V;
+};
+
+// Shared memory (from a 1,024-byte boundary): the ring of P_STAGES x [64 x
+// 32] of x (128-byte swizzled), the two query planes [2 NQW x kq], the
+// packed plane (NQW/2 values of each consumer thread), each stage's column
+// terms [2 x 64], the block's query terms [2 NQW x 2], the full and the
+// empty mbarriers. Threads 0-127 are the producer warpgroup (its warp 0
+// issues the copies; warps 1-3 only give their registers up), 128-383 the
+// two consumer warpgroups.
+template <int NQW>
+__global__ void __launch_bounds__(P_THREADS, 1)
+    exact_pool_pipelined_kernel(const __grid_constant__ PoolArgs a,
+                                const __grid_constant__ CUtensorMap xmap) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  const int N = a.N, kq = a.kq, bins = a.bins;
+  float* qb = ring + P_STAGES * P_STAGE;  // big halves of the queries
+  float* qs = qb + 2 * NQW * kq;          // their small halves
+  float* pk = qs + 2 * NQW * kq;          // element i of thread ct at pk[i * 256 + ct]
+  float* cols = pk + NQW / 2 * P_CONSUMERS;  // each stage's aux0, aux1 of its 64 rows
+  float* qterm = cols + P_STAGES * 2 * P_ROWS;  // mult, qn2 of the block's queries
+  const uint32_t ring_s = smem_addr(ring);
+  const uint32_t full_s = smem_addr(qterm + 2 * 2 * NQW);
+  const uint32_t empty_s = full_s + 8 * P_STAGES;
+  const int tid = threadIdx.x;
+  const int col_blocks = bins / P_ROWS;
+  const int grp = blockIdx.y / col_blocks;
+  const int b0 = (blockIdx.y % col_blocks) * P_ROWS;
+  const long long first = (long long)grp * a.fold * a.tile + b0;
+  const int per = a.tile / bins;  // row slices per tile
+  const int slices = a.fold * per;
+  // slices holding rows < N (later ones lie further past N)
+  const int nsl = first >= N ? 0
+      : (int)(((N - first + bins - 1) / bins) < slices
+                  ? (N - first + bins - 1) / bins : slices);
+  const int nch = kq / KC;  // ring stages per slice
+  const int steps = nsl * nch;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < P_STAGES; ++i) {
+      mbar_init(full_s + 8 * i, 1 + 32);  // the copy's thread, the column terms' warp
+      mbar_init(empty_s + 8 * i, P_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < WG_THREADS) {
+    // the producer warp: step s = (slice s / nch, feature chunk s % nch)
+    // into stage s % P_STAGES once the consumers have left it; thread 0
+    // copies x's box by TMA, the warp the slice's column terms by cp.async
+    // (zeros past N), each lane's completion an arrival on the full barrier
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(P_PRODUCER_REGS));
+    if (tid < 32) {
+      const bool cosine = a.cosine != 0;
+      int c = 0, row = (int)first;
+      for (int s = 0; s < steps; ++s) {
+        const int st = s & (P_STAGES - 1);
+        const uint32_t full = full_s + 8 * st;
+        if (s >= P_STAGES) mbar_wait(empty_s + 8 * st, ((s / P_STAGES) + 1) & 1);
+        if (tid == 0) {
+          mbar_expect_tx(full, P_STAGE * sizeof(float));
+          tma_load_2d(ring_s + st * P_STAGE * sizeof(float), &xmap, c * KC, row, full);
+        }
+        const uint32_t dst = smem_addr(cols + st * 2 * P_ROWS);
+#pragma unroll
+        for (int k = 0; k < P_ROWS; k += 32) {
+          const int r = row + k + tid;
+          const bool ok = r < N;
+          cp_async4(dst + 4 * (k + tid), ok ? a.aux0 + r : a.aux0, ok);
+          if (cosine)
+            cp_async4(dst + 4 * (P_ROWS + k + tid), ok ? a.aux1 + r : a.aux1, ok);
+        }
+        asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                     :: "r"(full) : "memory");
+        if (++c == nch) {
+          c = 0;
+          row += bins;
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(P_CONSUMER_REGS));
+  const int ct = tid - WG_THREADS;  // consumer thread 0 .. 255
+  // its warpgroup (queries wg*NQW ..), warp-uniform as the compiler sees it,
+  // so the MMA descriptors live in uniform registers
+  const int wg = __shfl_sync(0xFFFFFFFFu, ct >> 7, 0);
+  const int lane = ct & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr0 = ((ct & 127) >> 5) * 16 + g;  // this thread's rows: lr0, lr0 + 8
+  const int Q = a.Q;
+  const int q0 = blockIdx.x * 2 * NQW;  // the block's queries
+  const int qw = q0 + wg * NQW;         // the warpgroup's
+  const bool cosine = a.cosine != 0;
+
+  // the block's queries' quantization terms
+  for (int n = ct; n < 2 * NQW; n += P_CONSUMERS) {
+    const int qi = q0 + n;
+    qterm[2 * n] = qi < Q ? a.mult[qi] : 0.f;
+    qterm[2 * n + 1] = (qi < Q && !cosine) ? a.qn2[qi] : 0.f;
+  }
+  // the block's query tile, split once into the two planes (zero past Q
+  // and dl)
+  for (int o = ct; o < 2 * NQW * kq; o += P_CONSUMERS) {
+    int n, k;
+    plane_pos(o, kq, n, k);
+    const int qi = q0 + n;
+    const float v = (qi < Q && k < a.dl) ? a.q[(long long)qi * a.D + k] : 0.f;
+    uint32_t big, small;
+    split_tf32(v, big, small);
+    qb[o] = __uint_as_float(big);
+    qs[o] = __uint_as_float(small);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, %0;\n" :: "n"(P_CONSUMERS) : "memory");
+
+  // two accumulators and two sets of x fragments: one chunk's MMAs run
+  // while the last chunk is summed and its epilogue runs. acc[b][4j + 2h +
+  // e] (and sum, best) is row lr0 + 8h, query qw + 8j + 2t + e. The winning
+  // slices in the tile: 4 bits, eight a register.
+  constexpr int NA = NQW / 2;
+  constexpr int NSLOT = (NA + 7) / 8;
+  float acc[2][NA], best[NA], sum[NA];
+  uint32_t fb[2][4][4], fs[2][4][4], slot[NSLOT];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+    acc[0][i] = 0.f;
+    acc[1][i] = 0.f;
+    best[i] = -CUDART_INF_F;
+    sum[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < NSLOT; ++i) slot[i] = 0xFFFFFFFFu;
+  const uint32_t pb = smem_addr(qb), ps = smem_addr(qs);
+  const uint32_t sbo = (uint32_t)kq * 32;
+  const uint32_t qoff = (uint32_t)(wg * NQW / 8) * sbo;
+  // the fragment loads' byte offsets in a stage: unit u of row lr0 lies at
+  // lr0 * 128 + (u ^ g) * 16, which is frag ^ (u << 4) (lr0 * 128 has its
+  // low 7 bits clear); row lr0 + 8 lies 1,024 bytes on
+  const uint32_t frag = lr0 * 128 + g * 16 + t * 4;
+
+  // Step s (chunk c of its slice) into buffer B: wait for its stage, split
+  // the warp's fragments (rows lr0, lr0 + 8; features t, t + 4 of each k8;
+  // unit u of row r sits at u ^ (r & 7), and r & 7 is g for both rows),
+  // commit the chunk's 12 MMAs (small terms first: the chunk's first
+  // product overwrites the accumulator, CHUNK_SUM). The stage goes back to
+  // the producer in finish, after its column terms are read.
+  auto issue = [&](auto buf, int s, int c) {
+    constexpr int B = decltype(buf)::value;
+    const int st = s & (P_STAGES - 1);
+    mbar_wait(full_s + 8 * st, (s / P_STAGES) & 1);
+    const unsigned char* stage =
+        reinterpret_cast<const unsigned char*>(ring + st * P_STAGE);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const float* p0 = reinterpret_cast<const float*>(stage + (frag ^ (2 * ks << 4)));
+      const float* p1 = reinterpret_cast<const float*>(stage + (frag ^ ((2 * ks + 1) << 4)));
+      split_tf32_int(p0[0], fb[B][ks][0], fs[B][ks][0]);
+      split_tf32_int(p0[256], fb[B][ks][1], fs[B][ks][1]);
+      split_tf32_int(p1[0], fb[B][ks][2], fs[B][ks][2]);
+      split_tf32_int(p1[256], fb[B][ks][3], fs[B][ks][3]);
+    }
+#pragma unroll
+    for (int i = 0; i < NA; ++i) reg_fence(acc[B][i]);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    auto desc = [&](uint32_t plane, int ks) {
+      return smem_desc(plane + (uint32_t)(c * 4 + ks) * 256 + qoff, 128, sbo);
+    };
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) Wgmma<NQW>::run(acc[B], fs[B][ks], desc(pb, ks), ks != 0);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) Wgmma<NQW>::run(acc[B], fb[B][ks], desc(ps, ks), 1);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) Wgmma<NQW>::run(acc[B], fb[B][ks], desc(pb, ks), 1);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  };
+
+  // Step c's chunk in buffer B, its MMAs complete: into the slice's sum
+  auto add = [&](auto buf, int c) {
+    constexpr int B = decltype(buf)::value;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) reg_fence(acc[B][i]);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        reg_fence(fb[B][ks][f]);
+        reg_fence(fs[B][ks][f]);
+      }
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) sum[i] = 0.f + acc[B][i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) sum[i] += acc[B][i];
+    }
+  };
+
+  // Where a step lies: step s, chunk c of slice sl, the slice in_tile of its
+  // tile.
+  struct Pos {
+    int s, c, sl, in_tile;
+  };
+  auto next = [&](Pos p) {
+    ++p.s;
+    if (++p.c == nch) {
+      p.c = 0;
+      ++p.sl;
+      if (++p.in_tile == per) p.in_tile = 0;
+    }
+    return p;
+  };
+
+  // After step p's sum: at the slice's last chunk keep (score, slice) on
+  // `>`; at the tile's last slice compress, merge into the packed plane,
+  // start afresh.
+  auto epilogue = [&](Pos p) {
+    if (p.c != nch - 1) return;
+    const int sl = p.sl, in_tile = p.in_tile;
+    // rows lr0 and lr0 + 8's column terms as one FFMA, score = sum * m + c:
+    // L2 (1, -aux0), exact as sum - aux0; cosine (aux0, aux1); a row past N
+    // (0, -inf), which never wins
+    const float* cl = cols + (p.s & (P_STAGES - 1)) * 2 * P_ROWS;
+    const long long r0 = first + (long long)sl * bins + lr0;
+    const bool ok0 = r0 < N, ok1 = r0 + 8 < N;
+    float m0, c0, m1, c1;
+    if (cosine) {
+      m0 = ok0 ? cl[lr0] : 0.f;
+      m1 = ok1 ? cl[lr0 + 8] : 0.f;
+      c0 = ok0 ? cl[P_ROWS + lr0] : -CUDART_INF_F;
+      c1 = ok1 ? cl[P_ROWS + lr0 + 8] : -CUDART_INF_F;
+    } else {
+      m0 = ok0 ? 1.f : 0.f;
+      m1 = ok1 ? 1.f : 0.f;
+      c0 = ok0 ? -cl[lr0] : -CUDART_INF_F;
+      c1 = ok1 ? -cl[lr0 + 8] : -CUDART_INF_F;
+    }
+#pragma unroll
+    for (int j = 0; j < NQW / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m = h ? m1 : m0, cc = h ? c1 : c0;
+        uint32_t sp = slot[(4 * j + 2 * h) / 8];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          const int sh = (i % 8) * 4;
+          const float sc = fmaf(sum[i], m, cc);
+          const bool up = sc > best[i];
+          best[i] = up ? sc : best[i];
+          sp = up ? (sp & ~(0xFu << sh)) | ((uint32_t)in_tile << sh) : sp;
+        }
+        slot[(4 * j + 2 * h) / 8] = sp;
+      }
+    }
+    if (in_tile != per - 1 && sl + 1 != nsl) return;
+    const bool first_tile = sl < per;
+    const int tile0 = sl - in_tile;  // the tile's first slice
+#pragma unroll
+    for (int j = 0; j < NQW / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = wg * NQW + 8 * j + 2 * t + e;  // the query in the block
+        const bool live = q0 + n < Q;
+        const float m = qterm[2 * n], n2 = qterm[2 * n + 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h + e;
+          const float b = best[i];
+          const float v = cosine ? b : -sqrtf(fmaxf(n2 - b, 0.f));
+          const int sv = tile0 + (int)((slot[i / 8] >> ((i % 8) * 4)) & 0xFu);
+          const float pv = rintf(v * m) * a.slot_f + (float)sv;
+          if (live) {
+            float* o = pk + i * P_CONSUMERS + ct;
+            const float old = first_tile ? -CUDART_INF_F : *o;
+            *o = pv > old ? pv : old;  // a NaN never wins
+          }
+          best[i] = -CUDART_INF_F;
+        }
+      }
+  };
+
+  // the step's sums and epilogue, then its stage back to the producer (its
+  // column terms were read last)
+  auto finish = [&](auto buf, Pos p) {
+    add(buf, p.c);
+    epilogue(p);
+    __syncwarp();
+    mbar_arrive_lane0(empty_s + 8 * (p.s & (P_STAGES - 1)), lane);
+  };
+
+  // One MMA wait a chunk: step s's MMAs are committed before the wait for
+  // step s - 1's (wgmma.wait_group 1), whose sums and epilogues then run
+  // under them. Buffers alternate, even steps in 0, odd in 1.
+  if (steps > 0) {
+    Pos p{0, 0, 0, 0};  // the step in flight
+    issue(Buf<0>{}, 0, 0);
+    int s = 1;
+    for (; s + 1 < steps; s += 2) {
+      Pos p1 = next(p);
+      issue(Buf<1>{}, s, p1.c);
+      wgmma_wait<1>();
+      finish(Buf<0>{}, p);
+      p = next(p1);
+      issue(Buf<0>{}, s + 1, p.c);
+      wgmma_wait<1>();
+      finish(Buf<1>{}, p1);
+    }
+    if (s < steps) {
+      const Pos p1 = next(p);
+      issue(Buf<1>{}, s, p1.c);
+      wgmma_wait<1>();
+      finish(Buf<0>{}, p);
+      wgmma_wait<0>();
+      finish(Buf<1>{}, p1);
+    } else {
+      wgmma_wait<0>();
+      finish(Buf<0>{}, p);
+    }
+  }
+
+  // the packed plane out of shared memory; a column block past N (no tile)
+  // has every bin dead
+  const long long col0 = (long long)grp * bins + b0;
+#pragma unroll
+  for (int j = 0; j < NQW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int qi = qw + 8 * j + 2 * t + e;
+      if (qi >= Q) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h + e;
+        a.out_s[(long long)qi * a.W + col0 + lr0 + 8 * h] =
+            nsl == 0 ? -CUDART_INF_F : pk[i * P_CONSUMERS + ct];
+      }
+    }
+}
+
+// ------------------------------------------------------------ launching
+
+// Lets the kernel take the device's opt-in maximum of shared memory, once
+// per device (`ready`: one flag a device), so later launches make no other
+// CUDA call.
+int allow_max_smem(const void* kernel, bool* ready) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -665,21 +1154,87 @@ int launch(const PoolArgs& a, cudaStream_t stream) {
     int optin = 0;
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(exact_pool_tc_kernel<NQ, SQ, PACKED>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
     if (e != cudaSuccess) return (int)e;
     ready[dev] = true;
   }
+  return (int)cudaSuccess;
+}
+
+template <int NQ, bool SQ, bool PACKED>
+int launch(const PoolArgs& a, cudaStream_t stream) {
+  static bool ready[64];
+  const int e = allow_max_smem((const void*)exact_pool_tc_kernel<NQ, SQ, PACKED>, ready);
+  if (e != (int)cudaSuccess) return e;
   const dim3 grid((a.Q + NQ - 1) / NQ, a.W / ROWS);
   const size_t bytes = smem_bytes<PACKED>(NQ, a.kq, SQ);
   exact_pool_tc_kernel<NQ, SQ, PACKED><<<grid, THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// Picks the query tile and the form (resident or streamed) for the live
-// width and launches.
+template <int NQW>
+int launch_pipelined(const PoolArgs& a, const CUtensorMap& xmap, cudaStream_t stream) {
+  static bool ready[64];
+  const int e = allow_max_smem((const void*)exact_pool_pipelined_kernel<NQW>, ready);
+  if (e != (int)cudaSuccess) return e;
+  const dim3 grid((a.Q + 2 * NQW - 1) / (2 * NQW), a.W / P_ROWS);
+  exact_pool_pipelined_kernel<NQW>
+      <<<grid, P_THREADS, pipe_smem_bytes(NQW, a.kq), stream>>>(a, xmap);
+  return (int)cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled through the runtime (libcuda is not linked)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &got);
+#endif
+    return e == cudaSuccess && got == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// x as a tensor map [N rows, dl features] with row stride D, boxes of 64
+// rows x 32 features, 128-byte swizzled, zeros outside; false where TMA
+// cannot take x (a row stride or an address that is no multiple of 16
+// bytes) or the encode fails.
+bool x_tensor_map(CUtensorMap* map, const PoolArgs& a) {
+  if (a.D % 4 != 0 || (reinterpret_cast<uintptr_t>(a.x) & 15) != 0) return false;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)a.dl, (cuuint64_t)a.N};
+  const cuuint64_t strides[1] = {(cuuint64_t)a.D * sizeof(float)};
+  const cuuint32_t box[2] = {KC, P_ROWS};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(a.x),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// B2's form, reported through exact_pool_packed_launch's `form`
+enum PackedForm { FORM_PIPELINED = 1, FORM_STREAMED = 2 };
+
+// Picks the form and the query tile for the live width and launches. B1:
+// resident planes where they fit at 32 queries or more, else streamed. B2:
+// the pipelined form where its planes fit at 16 queries a warpgroup or
+// more and x takes a tensor map, else the shared kernel's streamed form.
 template <bool PACKED>
-int dispatch(PoolArgs a, void* stream) {
+int dispatch(PoolArgs a, void* stream, int* form) {
   if (a.Q <= 0 || a.W <= 0) return (int)cudaSuccess;
   if (a.dl < 1 || a.dl > a.D) return (int)cudaErrorInvalidValue;
   if ((long long)a.fold * (a.tile / a.bins) >= NO_SLICE ||
@@ -688,18 +1243,41 @@ int dispatch(PoolArgs a, void* stream) {
   a.kq = (a.dl + KC - 1) / KC * KC;
   int want = 8;
   while (want < 128 && want < a.Q) want *= 2;
+  auto s = (cudaStream_t)stream;
   int nq = want;
-  const int least = want < 32 ? want : 32;
-  while (nq > least && smem_bytes<PACKED>(nq, a.kq, false) > SMEM_MAX) nq /= 2;
-  const bool sq = smem_bytes<PACKED>(nq, a.kq, false) > SMEM_MAX;
-  if (sq) nq = want < 64 ? want : 64;  // B1 180 KB, B2 175 KB at 64
+  bool sq;
+  if constexpr (PACKED) {
+    int nqw = want / 2 < 8 ? 8 : want / 2;
+    const int least = nqw < 16 ? nqw : 16;
+    while (nqw > least && pipe_smem_bytes(nqw, a.kq) > SMEM_MAX) nqw /= 2;
+    CUtensorMap xmap;
+    if (pipe_smem_bytes(nqw, a.kq) <= SMEM_MAX && a.W / P_ROWS <= 65535 &&
+        x_tensor_map(&xmap, a)) {
+      *form = FORM_PIPELINED;
+      switch (nqw) {
+        case 64: return launch_pipelined<64>(a, xmap, s);
+        case 32: return launch_pipelined<32>(a, xmap, s);
+        case 16: return launch_pipelined<16>(a, xmap, s);
+        case 8: return launch_pipelined<8>(a, xmap, s);
+      }
+      return (int)cudaErrorInvalidValue;
+    }
+    *form = FORM_STREAMED;
+    sq = true;
+    nq = want < 64 ? want : 64;  // 175 KB at 64
+  } else {
+    const int least = want < 32 ? want : 32;
+    while (nq > least && smem_bytes<PACKED>(nq, a.kq, false) > SMEM_MAX) nq /= 2;
+    sq = smem_bytes<PACKED>(nq, a.kq, false) > SMEM_MAX;
+    if (sq) nq = want < 64 ? want : 64;  // 180 KB at 64
+  }
   a.vec = a.D % 4 == 0 && (reinterpret_cast<uintptr_t>(a.x) & 15) == 0 &&
           (!sq || (reinterpret_cast<uintptr_t>(a.q) & 15) == 0);
-  auto s = (cudaStream_t)stream;
   switch (nq * 2 + sq) {
-#define EXACT_POOL_TC_LAUNCH(NQ, SQ) \
-  case NQ * 2 + SQ:                  \
-    return launch<NQ, SQ, PACKED>(a, s);
+#define EXACT_POOL_TC_LAUNCH(NQ, SQ)                                    \
+  case NQ * 2 + SQ:                                                     \
+    if constexpr (SQ || !PACKED) return launch<NQ, SQ, PACKED>(a, s);   \
+    break;
     EXACT_POOL_TC_LAUNCH(128, false)
     EXACT_POOL_TC_LAUNCH(64, false)
     EXACT_POOL_TC_LAUNCH(32, false)
@@ -719,7 +1297,9 @@ int dispatch(PoolArgs a, void* stream) {
 // Both launch on the caller's stream and return cudaGetLastError() (0 =
 // launched), or cudaErrorInvalidValue for 65,535 or more row slices per
 // group or a live width outside 1 .. D. The other checks are the Python
-// wrappers' (vectorsearch_torch/ops/exact.py).
+// wrappers' (vectorsearch_torch/ops/exact.py). The packed one reports the
+// form it launched in *form (1 pipelined, 2 streamed; untouched when it
+// launched nothing).
 extern "C" int exact_pool_launch(const float* q, const float* x,
                                  const float* aux0, const float* aux1,
                                  float* out_s, int* out_i, int Q, int N, int D,
@@ -727,7 +1307,7 @@ extern "C" int exact_pool_launch(const float* q, const float* x,
                                  void* stream) {
   const PoolArgs a{q, x, aux0, aux1, nullptr, nullptr, out_s, out_i, Q, N, D,
                    D, 0, tile, bins, fold, W, cosine, 0, 0.f};
-  return dispatch<false>(a, stream);
+  return dispatch<false>(a, stream, nullptr);
 }
 
 extern "C" int exact_pool_packed_launch(const float* q, const float* x,
@@ -736,8 +1316,8 @@ extern "C" int exact_pool_packed_launch(const float* q, const float* x,
                                         float* out, int Q, int N, int D,
                                         int d_live, int tile, int bins,
                                         int fold, int W, int cosine,
-                                        float slot_f, void* stream) {
+                                        float slot_f, void* stream, int* form) {
   const PoolArgs a{q, x, aux0, aux1, mult, qn2, out, nullptr, Q, N, D,
                    d_live, 0, tile, bins, fold, W, cosine, 0, slot_f};
-  return dispatch<true>(a, stream);
+  return dispatch<true>(a, stream, form);
 }

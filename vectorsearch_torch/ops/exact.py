@@ -39,6 +39,7 @@ import torch
 
 from vectorsearch_torch.ops.distance import matmul_nt
 from vectorsearch_torch.utils import cuda_build
+from vectorsearch_torch.utils.metrics import get_registry
 
 _BINS = 128  # one 128-wide row of bins per 1024 rows of tile
 
@@ -115,11 +116,19 @@ def _bind_tc(lib) -> None:
     lib.exact_pool_launch.restype = ctypes.c_int
     lib.exact_pool_packed_launch.argtypes = [
         p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p,
+        ctypes.POINTER(ctypes.c_int),
     ]
     lib.exact_pool_packed_launch.restype = ctypes.c_int
 
 
 _count_lock = threading.Lock()
+
+#: Registry counter of B2's launches, by the form the kernel took
+#: (attribute ``form``): ``pipelined`` (its own mainloop, resident query
+#: planes, a TMA ring) or ``streamed`` (the shared mainloop streaming the
+#: query tile: rows too wide for resident planes, or rows TMA cannot take).
+PACKED_LAUNCHES = "vectorsearch.exact_pool.packed.launches"
+_PACKED_FORMS = {1: "pipelined", 2: "streamed"}
 _MAX_SLICES = 65_534  # csrc/exact_pool_tc.cu: 16-bit slice ids, one kept free
 
 
@@ -236,7 +245,9 @@ def exact_pool_packed_cuda(q_in, x, aux, mult, qn2, *, metric, tile, bins,
     plane f32[Q, W]. ``d_live`` (default D): the kernel reads features
     0 .. d_live-1 only; the caller vouches that the others are zero in q_in
     or in x (lane padding), so skipping them changes no bit.
-    ``exact_pool_packed_cuda.launches`` counts the launches."""
+    ``exact_pool_packed_cuda.launches`` counts the launches, and the
+    registry's ``PACKED_LAUNCHES`` counts them by the form the kernel
+    took."""
     qn = q_in.shape[0]
     n, d = x.shape
     dev = x.device
@@ -259,18 +270,22 @@ def exact_pool_packed_cuda(q_in, x, aux, mult, qn2, *, metric, tile, bins,
     lib = cuda_build.load("exact_pool_tc", _bind_tc)
     out = torch.empty((qn, w), dtype=torch.float32, device=dev)
     cosine = metric == "COSINE"
+    form = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.exact_pool_packed_launch(
             q_in.data_ptr(), x.data_ptr(), aux[0].data_ptr(),
             aux[1].data_ptr() if cosine else None,
             mult.data_ptr(), qn2.data_ptr(), out.data_ptr(),
             qn, n, d, d_live, tile, bins, fold, w, int(cosine), slot_f,
-            torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(form),
         )
     if rc != 0:
         raise RuntimeError(f"exact_pool_packed_launch failed: CUDA error {rc}")
     with _count_lock:
         exact_pool_packed_cuda.launches += 1
+    if form.value:  # 0: nothing to launch (no query or no column)
+        get_registry().inc(PACKED_LAUNCHES,
+                           attrs={"form": _PACKED_FORMS[form.value]})
     return out
 
 
