@@ -22,8 +22,13 @@ result):
      2-segment group, N 200,192, fold 2; the ACTIVE brute table, N 100,096
      with its first 20,000 rows valid, fold 1) and a Deep10M batch gives it
      (its ACTIVE brute table: N 1,000,064, D 128 from 96 unit features,
-     fold 8), a cosine case with a zero-norm row, and a tail case (N not a
-     multiple of the tile, invalid rows, dead bins);
+     fold 8), a gist1m batch gives it (Q 512, 960 clustered features
+     zero-padded to 1,024 lanes, L2: the 8- and the 2-segment group, the
+     streamed form at 64 queries a tile with chunk sums, its scores held to
+     3e-6 x scale where the others are held to 1e-5, since one accumulator
+     over its 30 chunks read 7e-6 there), a cosine case
+     with a zero-norm row, and a tail case (N not a multiple of the tile,
+     invalid rows, dead bins);
    - the packed exact-pool kernel (B2) at the Deep10M subgroups' shapes
      (Q 512, D 128 from 96 unit features, L2, ~2% invalid rows: the
      8-segment group, N 8,000,512, whose plain side runs over 64 queries,
@@ -135,8 +140,10 @@ result):
    chunk candidates side by side (the wrapper's chunk against 1,024
    columns, in turns); for B1 also its
    useful TFLOP/s, the ceiling of its 3xTF32 form at the TF32 peak, and its
-   times at the 2-segment group, the Deep10M brute table and 3,072-feature
-   rows (its streamed form, beside torch.matmul); for B2 its useful
+   times at the 2-segment group, the Deep10M brute table and GIST1M's two
+   groups of 960-feature rows in 1,024 lanes (its streamed form, with the
+   form and query tile its counter read, beside torch.matmul and the
+   bound); for B2 its useful
    TFLOP/s, 3xTF32 ceiling and bound both at the padded D 128 and at the
    96 live features the index asks for, beside torch.matmul of the padded
    and of the live product.
@@ -256,7 +263,7 @@ def _build_all():
 
 
 _EXACT_FORM = re.compile(
-    r"exact_pool_(?:tc_kernel(?:<\d+, \w+, (\w+)>|ILi\d+ELb[01]ELb([01])E)"
+    r"exact_pool_(?:tc_kernel(?:<\d+, \w+, (\w+), \w+>|ILi\d+ELb[01]ELb([01])E)"
     r"|pipelined_kernel(?:<(\d+)>|ILi(\d+)E))")
 _EXACT_FORMS = ("B1", "B2 streamed", "B2 pipelined")
 
@@ -264,7 +271,7 @@ _EXACT_FORMS = ("B1", "B2 streamed", "B2 pipelined")
 def _exact_form(name):
     """(form, NQW) of an exact-pool kernel from its demangled or mangled
     name: B1 or B2's streamed form (exact_pool_tc_kernel, its PACKED flag
-    the last template argument; NQW None) or B2's pipelined form
+    the third template argument; NQW None) or B2's pipelined form
     (exact_pool_pipelined_kernel<NQW>); None for any other name."""
     m = _EXACT_FORM.search(name)
     if m is None:
@@ -345,10 +352,13 @@ def _warpgroup_mmas(lib_path, kernel):
 
 
 def _case(name, n, metric, *, seed, zero_row=False, alive_frac=1.0, qn=512,
-          d=128, segs=None, live_rows=None):
-    """Clustered rows and queries made on the card from a seed. `segs`: a
-    stack of that many 100,000-row segments; `live_rows`: only the first
-    rows are valid (an ACTIVE segment's brute table)."""
+          d=128, live_d=None, segs=None, live_rows=None, rtol=1e-5):
+    """Clustered rows and queries made on the card from a seed. `live_d`:
+    only the first features are drawn, the rest are zeros (rows padded to
+    their lanes, as a segment stores them); `segs`: a stack of that many
+    100,000-row segments; `live_rows`: only the first rows are valid (an
+    ACTIVE segment's brute table); `rtol`: `_check_pool`'s tolerance over
+    the case's scale."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -357,6 +367,9 @@ def _case(name, n, metric, *, seed, zero_row=False, alive_frac=1.0, qn=512,
     x = (x + torch.randn(n, d, device="cuda", generator=g)).contiguous()
     q = centers[torch.randint(0, 2048, (qn,), device="cuda", generator=g)]
     q = q + torch.randn(qn, d, device="cuda", generator=g)
+    if live_d is not None:
+        x[:, live_d:] = 0.0
+        q[:, live_d:] = 0.0
     if alive_frac < 1.0:
         valid = torch.rand(n, device="cuda", generator=g) < alive_frac
     else:
@@ -370,7 +383,7 @@ def _case(name, n, metric, *, seed, zero_row=False, alive_frac=1.0, qn=512,
         valid = valid & (torch.arange(n, device="cuda") < live_rows)
     if zero_row:
         x[7] = 0.0
-    return dict(name=name, q=q, x=x, valid=valid, metric=metric)
+    return dict(name=name, q=q, x=x, valid=valid, metric=metric, rtol=rtol)
 
 
 def _near_ties(rank, tol):
@@ -386,7 +399,8 @@ def _near_ties(rank, tol):
 
 
 def _check_pool(case, exact_ops, traversal_ops):
-    """Kernel vs plain version on one case; returns (max_abs_err, report)."""
+    """Kernel vs plain version on one case, scores within the case's rtol
+    (1e-5 unless it sets one) x scale; returns (max_abs_err, report)."""
     import torch
 
     from vectorsearch_torch.ops.distance import matmul_nt
@@ -399,7 +413,7 @@ def _check_pool(case, exact_ops, traversal_ops):
     qn = q.norm(dim=1)
     mx = torch.sqrt(torch.where(valid, (x * x).sum(1), 0.0).max())
     scale = qn if metric == "COSINE" else 2 * qn * mx + mx * mx
-    tol = (1e-5 * scale)[:, None]  # per query
+    tol = (case.get("rtol", 1e-5) * scale)[:, None]  # per query
     live = torch.isfinite(ps)
     if not torch.equal(live, torch.isfinite(ks)):
         raise AssertionError(f"{case['name']}: dead bins differ")
@@ -2291,6 +2305,57 @@ def _packed_timings(exact_ops, peaks, tag, pipe_regs):
     return out
 
 
+def _gist_timings(exact_ops, peaks, tag):
+    """B1 at GIST1M's two sealed groups' shapes (Q 512 x N 800,768 and
+    200,192, rows of 960 features zero-padded to 1,024 lanes, as
+    gist1m.batch512's index holds them), the form and query tile each launch
+    took (the registry's counter), torch.matmul of the same product, and the
+    bound: bytes (the 960 live features of x, aux and q read once, the pool
+    written once) over the memory rate, or three split-bf16 passes of the
+    live product over the bf16 tensor-core rate; beside it the 3xTF32
+    ceiling over all 1,024 lanes, which the kernel computes."""
+    import torch
+
+    from vectorsearch_torch.utils.metrics import get_registry
+
+    reg = get_registry()
+    g = torch.Generator(device="cuda").manual_seed(37)
+    out = {}
+    for segs in (8, 2):
+        n = segs * 100_096
+        x = torch.randn((n, 1024), generator=g, device="cuda")
+        q = torch.randn((512, 1024), generator=g, device="cuda")
+        x[:, 960:] = 0.0
+        q[:, 960:] = 0.0
+        valid = torch.ones(n, dtype=torch.bool, device="cuda")
+        q_in, aux, geom = exact_ops.pool_inputs(q, x, valid, "L2")
+        before = reg.snapshot()["counters"]
+        ms = _time_ms(lambda: exact_ops.exact_pool_cuda(q_in, x, aux, **geom), 10)
+        forms = sorted(k[len(exact_ops.LAUNCHES):] for k, v in
+                       reg.snapshot()["counters"].items()
+                       if k.startswith(exact_ops.LAUNCHES + "{")
+                       and v > before.get(k, 0.0))
+        lib = _time_ms(lambda: torch.matmul(q_in, x.T), 10)
+        flops = 2 * 512 * n * 960
+        nbytes = n * 960 * 4 + n * 4 + 512 * 960 * 4 + 512 * geom["w"] * 8
+        bytes_ms = nbytes / peaks["bytes_s"] * 1e3
+        ops_ms = 3 * flops / peaks["bf16"] * 1e3
+        tf32_ms = 3 * 2 * 512 * n * 1024 / peaks["tf32"] * 1e3
+        _log(f"timing exact_pool {tag}: GIST1M {segs}-segment group, Q 512 x "
+             f"N {n:,} x D 1,024 (960 live; fold {geom['fold']}, W "
+             f"{geom['w']:,}): kernel ({', '.join(forms)}) {ms:.3f} ms "
+             f"({flops / ms / 1e9:.1f} useful TFLOP/s), torch.matmul "
+             f"{lib:.3f} ms, bound {max(bytes_ms, ops_ms):.3f} ms (operations "
+             f"{ops_ms:.3f}, bytes {bytes_ms:.3f}), 3xTF32 ceiling over the "
+             f"1,024 lanes {tf32_ms:.3f} ms")
+        key = f"_gist_{segs}seg"
+        out.update({f"ms{key}": ms, f"library_ms{key}": lib,
+                    f"bound_ms{key}": max(bytes_ms, ops_ms), f"form{key}": forms})
+        del x, q, q_in, aux, valid
+        torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2399,6 +2464,14 @@ def main() -> int:
         _case("mesh shard, N 25,024 (L2)", 25_024, "L2", seed=7),
         _case("one segment, N 100,096 (L2)", 100_096, "L2", seed=8),
         _case("sift1m 4-segment group (L2)", 4 * 100_096, "L2", seed=9, segs=4),
+        # gist1m.batch512's two groups: 960 features in 1,024 lanes, the
+        # streamed form at 64 queries a tile, with chunk sums. rtol 3e-6:
+        # one accumulator over the 30 chunks (the fault the sums repaired)
+        # read 6.7-7.0e-6 x scale here, the chunk sums 1.1e-6 (one H100)
+        _case("GIST1M 8-segment group, 960 of 1,024 lanes (L2)", 8 * 100_096,
+              "L2", seed=10, d=1024, live_d=960, segs=8, rtol=3e-6),
+        _case("GIST1M 2-segment group, 960 of 1,024 lanes (L2)", 2 * 100_096,
+              "L2", seed=11, d=1024, live_d=960, segs=2, rtol=3e-6),
     ]
     max_err = {name_: 0.0 for name_, _s, _r in _KERNELS}
     for case in cases:
@@ -2661,18 +2734,6 @@ def main() -> int:
     )
     deep_ms = _time_ms(lambda: exact_ops.exact_pool_cuda(
         q3_in, deep_brute["x"], aux3, **geom3), 10)
-    # rows of a published 3,072-feature embedding width: the kernel's
-    # streamed form (the query tile does not fit in shared memory); off the
-    # main path, timed beside torch.matmul of the same product
-    gw = torch.Generator(device="cuda").manual_seed(31)
-    xw = torch.randn((100_096, 3072), generator=gw, device="cuda")
-    qw = torch.randn((512, 3072), generator=gw, device="cuda")
-    qw_in, auxw, geomw = exact_ops.pool_inputs(
-        qw, xw, torch.ones(xw.shape[0], dtype=torch.bool, device="cuda"), "L2"
-    )
-    wide_ms = _time_ms(lambda: exact_ops.exact_pool_cuda(qw_in, xw, auxw, **geomw), 10)
-    wide_lib_ms = _time_ms(lambda: torch.matmul(qw_in, xw.T), 10)
-    del xw, qw, qw_in, auxw
     qn, n, d, w = qc.shape[0], xc.shape[0], xc.shape[1], geom["w"]
     bytes_moved = n * d * 4 + n * 4 + qn * d * 4 + qn * w * 8
     flops = 2 * qn * n * d
@@ -2692,9 +2753,7 @@ def main() -> int:
          f"useful TFLOP/s ({3 * flops / kernel_ms / 1e9:.1f} on the tensor "
          f"cores); kernel at the 2-segment group (N 200,192, fold "
          f"{geom2['fold']}) {two_ms:.3f} ms; at the Deep10M brute table "
-         f"(N {deep_brute['x'].shape[0]:,}, fold {geom3['fold']}) {deep_ms:.3f} ms; "
-         f"at Q 512 x N 100,096 x D 3,072 (streamed query tile) {wide_ms:.3f} ms, "
-         f"torch.matmul {wide_lib_ms:.3f} ms")
+         f"(N {deep_brute['x'].shape[0]:,}, fold {geom3['fold']}) {deep_ms:.3f} ms")
     # B1 at the mesh route's shape (a shard of a sift1m segment)
     qm_in, auxm, geomm = exact_ops.pool_inputs(
         mesh_case["q"], mesh_case["x"], mesh_case["valid"], "L2")
@@ -2719,6 +2778,7 @@ def main() -> int:
         library_ms=library_ms, ms_2seg=two_ms, ms_deep10m_brute=deep_ms,
         ms_mesh_shard=mesh_ms, plain_ms_mesh_shard=mesh_plain_ms,
         library_ms_mesh_shard=mesh_lib_ms, bound_ms_mesh_shard=mesh_bound_ms,
+        **_gist_timings(exact_ops, peaks, tag),
     )}
     timings["exact_pool_packed"] = packed_times
     adc_times, adc_extra = _adc_timings(adc_sift, adc_ops, peaks)

@@ -60,6 +60,8 @@ def cuda():
     # partial query tiles (the kernel's tile is up to 128 queries)
     (50_123, None, None, 128, 1, 1.0),
     (50_123, None, None, 128, 513, 1.0),
+    # a 64-query tile on narrow rows (one accumulator: no chunk sums)
+    (50_123, None, None, 128, 64, 1.0),
     # large magnitudes through the big/small TF32 split
     (50_123, None, None, 128, 100, 1e3),
     # Q x W of a single block: one query tile, one column block (W 128)
@@ -70,19 +72,38 @@ def cuda():
     (20_123, None, None, 2464, 3, 1.0),
     (20_123, None, None, 2465, 3, 1.0),
     (20_123, None, None, 3072, 100, 1.0),
+    # GIST1M's rows (960 features in 1,024 lanes, the lanes past them
+    # zeros) at its 2-segment group, as gist1m.batch512 sends them
+    # (streamed, 64 queries a tile, chunk sums)
+    (2 * 100_096, None, None, 1024, 512, 1.0),
 ])
 def test_kernel_matches_plain(cuda, rng, metric, n, tile, fold, d, qn, scale):
     x = rng.normal(size=(n, d)).astype(np.float32) * np.float32(scale)
     x[7] = 0.0
     q = rng.normal(size=(qn, d)).astype(np.float32) * np.float32(scale)
+    if d == 1024:  # GIST1M's 960 live features
+        x[:, 960:] = 0.0
+        q[:, 960:] = 0.0
     valid = rng.random(n) > 0.1
     args = [torch.from_numpy(a).to(cuda) for a in (q, x, valid)]
     q_in, aux, geom = te.pool_inputs(*args, metric=metric, tile_n=tile, fold=fold)
     if tile == 512 and fold == 4:
         assert geom["w"] == 128
+    # the form and the queries a block the kernel takes at each (D, Q) above:
+    # resident planes while they fit in shared memory, else streamed
+    form = {(128, 1): ("resident", 8), (128, 64): ("resident", 64),
+            (2464, 3): ("resident", 8),
+            (2465, 3): ("streamed", 8), (3072, 100): ("streamed", 64),
+            (1024, 512): ("streamed", 64)}.get((d, qn), ("resident", 128))
+    registry = get_registry()
+    counts = (registry.counter_value(te.LAUNCHES),
+              registry.counter_value(te.LAUNCHES, {"form": form[0], "tile": form[1]}))
     before = te.exact_pool_cuda.launches
     ks, ki = te.exact_pool_cuda(q_in, args[1], aux, **geom)
     assert te.exact_pool_cuda.launches == before + 1
+    assert (registry.counter_value(te.LAUNCHES),
+            registry.counter_value(te.LAUNCHES, {"form": form[0], "tile": form[1]})
+            ) == (counts[0] + 1, counts[1] + 1)
     ps, pi = te.exact_pool_plain(q_in, args[1], aux, **geom)
     torch.cuda.synchronize()
     ks, ki, ps, pi = (t.cpu().numpy() for t in (ks, ki, ps, pi))
@@ -97,6 +118,38 @@ def test_kernel_matches_plain(cuda, rng, metric, n, tile, fold, d, qn, scale):
     # ids agree where the winning score is not tied within the tolerance
     agree = np.mean(ki[live] == pi[live])
     assert agree > 0.999, agree
+
+
+def test_kernel_distances_hold_float32_at_gist_rows(cuda):
+    """B1 at GIST1M's rows (960 features in 1,024 lanes, clustered as the
+    gist1m-exact configuration draws them: centres of scale 4, unit noise;
+    64 centres, so each query has close neighbours) and 512 queries (the
+    streamed form, 64 a tile): every live bin's score, made a distance as
+    exact_finalize makes it, sqrt(|q|^2 - s), lies within 2e-5 of the
+    winning row's float64 distance, relative, the tolerance of
+    tests/test_torch_wide_rows.py, whose emulation of the tensor cores puts
+    one accumulator over the 30 chunks at ~7e-5 and chunk sums at ~3e-6."""
+    g = torch.Generator(device="cuda").manual_seed(960)
+    n = 50_123
+    centres = torch.randn((64, 960), generator=g, device="cuda") * 4.0
+
+    def draw(m):
+        out = torch.zeros((m, 1024), device="cuda")
+        pick = torch.randint(0, 64, (m,), generator=g, device="cuda")
+        out[:, :960] = centres[pick] + torch.randn((m, 960), generator=g, device="cuda")
+        return out
+
+    x, q = draw(n), draw(512)
+    q_in, aux, geom = te.pool_inputs(q, x, torch.ones(n, dtype=torch.bool, device="cuda"))
+    ks, ki = te.exact_pool_cuda(q_in, x, aux, **geom)
+    live = torch.isfinite(ks)
+    d = torch.sqrt(torch.clamp((q * q).sum(1)[:, None] - ks, min=0.0)).double()
+    x64, q64 = x.double(), q.double()
+    d2 = (q64 * q64).sum(1)[:, None] - 2.0 * q64 @ x64.T + (x64 * x64).sum(1)[None, :]
+    true = torch.sqrt(torch.gather(d2, 1, ki.long().clamp(min=0)))
+    err = ((d - true).abs() / true)[live]
+    assert live.float().mean() > 0.99
+    assert float(err.max()) <= 2e-5, float(err.max())
 
 
 @pytest.mark.parametrize("metric", ["L2", "COSINE"])

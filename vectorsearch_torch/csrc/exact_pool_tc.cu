@@ -53,11 +53,19 @@
 // form would run twice the tensor rate on paper, but errs by up to ~1.1e-5 x
 // 2|q||x|, the edge of B1's tolerance. Three TF32 passes at 495 TFLOP/s put
 // B1's ceiling at ~0.64 ms for the sift1m shape, B2's at ~4.8 ms for the
-// Deep10M one. B2 also sums each 32-feature chunk's products apart and adds
-// the chunks in registers (CHUNK_SUM below): the tensor cores round each
-// MMA's sum into the accumulator toward zero, so accumulated inside the MMAs
-// over a slice the error grows with the running sum past B2's quantization
-// step (up to 2-3 levels at F 8 over 128 features;
+// Deep10M one. B2, and B1 on rows over 128 features, also sum each
+// 32-feature chunk's products apart and add the chunks in registers
+// (CHUNK_SUM below): the tensor cores round each MMA's sum into the
+// accumulator toward zero, so accumulated inside the MMAs over a slice the
+// error grows with the running sum and the chunk count. At GIST1M's rows
+// (960 features in 30 chunks, |q|^2 ~ 16,000) one accumulator put ~1e-4 on
+// a neighbour's distance, ~25x float32's; at 128 features (4 chunks) it
+// stays within B1's tolerance, and B1 keeps it there at every query tile,
+// so a narrow row's distance does not depend on its batch's size. Rows
+// over 128 features never take the 128-query tile, which has no registers
+// for the sums.
+// The same rounding moves B2's quantization step (up to 2-3 levels at F 8
+// over 128 features;
 // tests/test_torch_exact_packed.py emulates it).
 //
 // Both mainloops put the product on the tensor cores as warpgroup MMA
@@ -97,9 +105,10 @@
 // until they fit. Wider rows take the streamed form (SQ): each ring stage
 // also brings the query tile's 32 features of that step, which the
 // warpgroup splits into planes of its own before its MMAs (one more named
-// barrier per step), at NQ up to 64. The main path's shape is D 128 (NQ
-// 128, resident). B2's streamed form runs the same loop with a ring of 3
-// stages (its packed plane takes the fourth's room) and CHUNK_SUM.
+// barrier per step), at NQ up to 64. The main path's shapes are D 128 (NQ
+// 128, resident) and GIST1M's D 1,024 (NQ 64, streamed, CHUNK_SUM). B2's
+// streamed form runs the same loop with a ring of 3 stages (its packed
+// plane takes the fourth's room) and CHUNK_SUM.
 //
 // B2 pipelined (exact_pool_pipelined_kernel), its resident form. What bound
 // the shared mainloop at Deep10M (Q 512, N 8,000,512, dl 96: 11.1 ms
@@ -399,8 +408,9 @@ size_t smem_bytes(int nq, int kq, bool sq) {
 // Shared memory: resident (SQ false): the two planes [NQ x kq], then each
 // warpgroup's ring of NST x [64 x XS]. Streamed: each warpgroup's two
 // planes [NQ x KC], then its ring of NST x ([64 x XS] of x, [NQ x XS] of
-// the query tile's raw features). Then B2's packed plane.
-template <int NQ, bool SQ, bool PACKED>
+// the query tile's raw features). Then B2's packed plane. CHUNK_SUM: see
+// the winning slices below.
+template <int NQ, bool SQ, bool PACKED, bool CHUNK_SUM>
 __global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(const PoolArgs a) {
   extern __shared__ __align__(128) float smem[];
   constexpr int NST = ring_stages<PACKED>();
@@ -510,16 +520,19 @@ __global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(const PoolArg
   constexpr int SPR = 32 / SB;         // slice indices per register
   constexpr int NSLOT = (NQ / 2 + SPR - 1) / SPR;
   constexpr uint32_t SMASK = (1u << SB) - 1;
-  // B2 sums each 32-feature chunk's products apart (the chunk's first MMA
-  // overwrites the accumulator) and adds the chunks in registers: the
-  // tensor cores round each MMA's sum into the accumulator toward zero, so
+  // CHUNK_SUM (B2, and B1 on rows over 128 features; dispatch picks it):
+  // sum each 32-feature chunk's products apart (the chunk's first MMA
+  // overwrites the accumulator) and add the chunks in registers: the tensor
+  // cores round each MMA's sum into the accumulator toward zero, so
   // accumulated inside the MMAs over a slice the error grows with the
-  // running sum past B2's quantization step (up to 2-3 levels at F 8 over
-  // 128 features; tests/test_torch_exact_packed.py emulates it). At 128
-  // queries a tile that second plane only fits beside the others if the
-  // MMA runs as two halves of 64 queries in turn, through one 32-register
-  // accumulator (HALVES).
-  constexpr bool CHUNK_SUM = PACKED;
+  // running sum and the chunks, past B2's quantization step (up to 2-3
+  // levels at F 8 over 128 features) and past float32's class on wide rows
+  // (tests/test_torch_exact_packed.py and tests/test_torch_wide_rows.py
+  // emulate both). At 128 queries a tile that second plane only fits beside
+  // the others if the MMA runs as two halves of 64 queries in turn, through
+  // one 32-register accumulator (HALVES).
+  static_assert(PACKED ? CHUNK_SUM : NQ <= 64 || !CHUNK_SUM,
+                "B2 always sums the chunks; B1's 128-query tile never does");
   constexpr int HALVES = PACKED && NQ == 128 ? 2 : 1;
   constexpr int NM = NQ / HALVES;  // queries per MMA
   float acc[NM / 2], best[NQ / 2], sum[NQ / 2];
@@ -1162,14 +1175,15 @@ int allow_max_smem(const void* kernel, bool* ready) {
   return (int)cudaSuccess;
 }
 
-template <int NQ, bool SQ, bool PACKED>
+template <int NQ, bool SQ, bool PACKED, bool CHUNK_SUM>
 int launch(const PoolArgs& a, cudaStream_t stream) {
   static bool ready[64];
-  const int e = allow_max_smem((const void*)exact_pool_tc_kernel<NQ, SQ, PACKED>, ready);
+  const int e = allow_max_smem(
+      (const void*)exact_pool_tc_kernel<NQ, SQ, PACKED, CHUNK_SUM>, ready);
   if (e != (int)cudaSuccess) return e;
   const dim3 grid((a.Q + NQ - 1) / NQ, a.W / ROWS);
   const size_t bytes = smem_bytes<PACKED>(NQ, a.kq, SQ);
-  exact_pool_tc_kernel<NQ, SQ, PACKED><<<grid, THREADS, bytes, stream>>>(a);
+  exact_pool_tc_kernel<NQ, SQ, PACKED, CHUNK_SUM><<<grid, THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1226,13 +1240,17 @@ bool x_tensor_map(CUtensorMap* map, const PoolArgs& a) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// B2's form, reported through exact_pool_packed_launch's `form`
-enum PackedForm { FORM_PIPELINED = 1, FORM_STREAMED = 2 };
+// The form a launch took, reported through the entry points' `form`: B2
+// takes the pipelined or the streamed form, B1 the resident or the
+// streamed one
+enum Form { FORM_PIPELINED = 1, FORM_STREAMED = 2, FORM_RESIDENT = 3 };
 
 // Picks the form and the query tile for the live width and launches. B1:
-// resident planes where they fit at 32 queries or more, else streamed. B2:
-// the pipelined form where its planes fit at 16 queries a warpgroup or
-// more and x takes a tensor map, else the shared kernel's streamed form.
+// resident planes where they fit at 32 queries or more, else streamed; it
+// reports the form in form[0] and the queries a block in form[1]. B2: the
+// pipelined form where its planes fit at 16 queries a warpgroup or more
+// and x takes a tensor map, else the shared kernel's streamed form; it
+// reports the form in form[0].
 template <bool PACKED>
 int dispatch(PoolArgs a, void* stream, int* form) {
   if (a.Q <= 0 || a.W <= 0) return (int)cudaSuccess;
@@ -1270,23 +1288,34 @@ int dispatch(PoolArgs a, void* stream, int* form) {
     while (nq > least && smem_bytes<PACKED>(nq, a.kq, false) > SMEM_MAX) nq /= 2;
     sq = smem_bytes<PACKED>(nq, a.kq, false) > SMEM_MAX;
     if (sq) nq = want < 64 ? want : 64;  // 180 KB at 64
+    form[0] = sq ? FORM_STREAMED : FORM_RESIDENT;
+    form[1] = nq;
   }
   a.vec = a.D % 4 == 0 && (reinterpret_cast<uintptr_t>(a.x) & 15) == 0 &&
           (!sq || (reinterpret_cast<uintptr_t>(a.q) & 15) == 0);
-  switch (nq * 2 + sq) {
-#define EXACT_POOL_TC_LAUNCH(NQ, SQ)                                    \
-  case NQ * 2 + SQ:                                                     \
-    if constexpr (SQ || !PACKED) return launch<NQ, SQ, PACKED>(a, s);   \
+  // chunk sums: B2 always, B1 on rows over 128 features (never at 128
+  // queries a tile, nor streamed without them: the streamed form starts
+  // past 576 features)
+  const bool cs = PACKED || a.kq > 128;
+  switch (nq * 4 + sq * 2 + cs) {
+#define EXACT_POOL_TC_LAUNCH(NQ, SQ, CS)                                   \
+  case NQ * 4 + SQ * 2 + CS:                                               \
+    if constexpr ((SQ || !PACKED) && (CS || !PACKED))                      \
+      return launch<NQ, SQ, PACKED, CS>(a, s);                             \
     break;
-    EXACT_POOL_TC_LAUNCH(128, false)
-    EXACT_POOL_TC_LAUNCH(64, false)
-    EXACT_POOL_TC_LAUNCH(32, false)
-    EXACT_POOL_TC_LAUNCH(16, false)
-    EXACT_POOL_TC_LAUNCH(8, false)
-    EXACT_POOL_TC_LAUNCH(64, true)
-    EXACT_POOL_TC_LAUNCH(32, true)
-    EXACT_POOL_TC_LAUNCH(16, true)
-    EXACT_POOL_TC_LAUNCH(8, true)
+    EXACT_POOL_TC_LAUNCH(128, false, false)
+    EXACT_POOL_TC_LAUNCH(64, false, false)
+    EXACT_POOL_TC_LAUNCH(32, false, false)
+    EXACT_POOL_TC_LAUNCH(16, false, false)
+    EXACT_POOL_TC_LAUNCH(8, false, false)
+    EXACT_POOL_TC_LAUNCH(64, false, true)
+    EXACT_POOL_TC_LAUNCH(32, false, true)
+    EXACT_POOL_TC_LAUNCH(16, false, true)
+    EXACT_POOL_TC_LAUNCH(8, false, true)
+    EXACT_POOL_TC_LAUNCH(64, true, true)
+    EXACT_POOL_TC_LAUNCH(32, true, true)
+    EXACT_POOL_TC_LAUNCH(16, true, true)
+    EXACT_POOL_TC_LAUNCH(8, true, true)
 #undef EXACT_POOL_TC_LAUNCH
   }
   return (int)cudaErrorInvalidValue;
@@ -1297,17 +1326,18 @@ int dispatch(PoolArgs a, void* stream, int* form) {
 // Both launch on the caller's stream and return cudaGetLastError() (0 =
 // launched), or cudaErrorInvalidValue for 65,535 or more row slices per
 // group or a live width outside 1 .. D. The other checks are the Python
-// wrappers' (vectorsearch_torch/ops/exact.py). The packed one reports the
-// form it launched in *form (1 pipelined, 2 streamed; untouched when it
-// launched nothing).
+// wrappers' (vectorsearch_torch/ops/exact.py). Each reports the form it
+// launched in form[0] (1 pipelined, 2 streamed, 3 resident; untouched when
+// it launched nothing); the two-plane one also reports the queries a block
+// in form[1], so its `form` points at two ints.
 extern "C" int exact_pool_launch(const float* q, const float* x,
                                  const float* aux0, const float* aux1,
                                  float* out_s, int* out_i, int Q, int N, int D,
                                  int tile, int bins, int fold, int W, int cosine,
-                                 void* stream) {
+                                 void* stream, int* form) {
   const PoolArgs a{q, x, aux0, aux1, nullptr, nullptr, out_s, out_i, Q, N, D,
                    D, 0, tile, bins, fold, W, cosine, 0, 0.f};
-  return dispatch<false>(a, stream, nullptr);
+  return dispatch<false>(a, stream, form);
 }
 
 extern "C" int exact_pool_packed_launch(const float* q, const float* x,

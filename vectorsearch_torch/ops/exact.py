@@ -112,7 +112,9 @@ def _packed_steps(tile: int, bins: int, fold: int) -> tuple[float, float]:
 
 def _bind_tc(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.exact_pool_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.exact_pool_launch.argtypes = [
+        p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, ctypes.POINTER(ctypes.c_int),
+    ]
     lib.exact_pool_launch.restype = ctypes.c_int
     lib.exact_pool_packed_launch.argtypes = [
         p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p,
@@ -123,12 +125,18 @@ def _bind_tc(lib) -> None:
 
 _count_lock = threading.Lock()
 
+#: Registry counter of B1's launches, by the form the kernel took
+#: (attribute ``form``): ``resident`` (the query tile's planes split once
+#: into shared memory) or ``streamed`` (each step's query features copied
+#: and split beside the rows': rows too wide for resident planes); and by
+#: the queries a block (attribute ``tile``, an int).
+LAUNCHES = "vectorsearch.exact_pool.launches"
 #: Registry counter of B2's launches, by the form the kernel took
 #: (attribute ``form``): ``pipelined`` (its own mainloop, resident query
 #: planes, a TMA ring) or ``streamed`` (the shared mainloop streaming the
 #: query tile: rows too wide for resident planes, or rows TMA cannot take).
 PACKED_LAUNCHES = "vectorsearch.exact_pool.packed.launches"
-_PACKED_FORMS = {1: "pipelined", 2: "streamed"}
+_FORMS = {1: "pipelined", 2: "streamed", 3: "resident"}  # csrc's enum Form
 _MAX_SLICES = 65_534  # csrc/exact_pool_tc.cu: 16-bit slice ids, one kept free
 
 
@@ -172,7 +180,9 @@ def _check_kernel_args(who, q_in, x, aux, metric, tile, bins, fold, w,
 def exact_pool_cuda(q_in, x, aux, *, metric, tile, bins, fold, w):
     """Launches the CUDA pool kernel on the current stream. q_in f32[Q, D]
     (pre-doubled for L2), x f32[N, D], aux f32[1|2, N] -> (scores f32[Q, W],
-    row ids i32[Q, W]). ``exact_pool_cuda.launches`` counts the launches."""
+    row ids i32[Q, W]). ``exact_pool_cuda.launches`` counts the launches,
+    and the registry's ``LAUNCHES`` counts them by the form and the query
+    tile the kernel took."""
     qn, d = q_in.shape
     n = x.shape[0]
     cosine = metric == "COSINE"
@@ -182,18 +192,22 @@ def exact_pool_cuda(q_in, x, aux, *, metric, tile, bins, fold, w):
     lib = cuda_build.load("exact_pool_tc", _bind_tc)
     outs = torch.empty((qn, w), dtype=torch.float32, device=dev)
     outi = torch.empty((qn, w), dtype=torch.int32, device=dev)
+    launched = (ctypes.c_int * 2)()  # the form and the queries a block
     with torch.cuda.device(dev):
         rc = lib.exact_pool_launch(
             q_in.data_ptr(), x.data_ptr(), aux[0].data_ptr(),
             aux[1].data_ptr() if cosine else None,
             outs.data_ptr(), outi.data_ptr(),
             qn, n, d, tile, bins, fold, w, int(cosine),
-            torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream, launched,
         )
     if rc != 0:
         raise RuntimeError(f"exact_pool_launch failed: CUDA error {rc}")
     with _count_lock:
         exact_pool_cuda.launches += 1
+    if launched[0]:  # 0: nothing to launch (no query or no column)
+        get_registry().inc(LAUNCHES, attrs={"form": _FORMS[launched[0]],
+                                            "tile": launched[1]})
     return outs, outi
 
 
@@ -285,7 +299,7 @@ def exact_pool_packed_cuda(q_in, x, aux, mult, qn2, *, metric, tile, bins,
         exact_pool_packed_cuda.launches += 1
     if form.value:  # 0: nothing to launch (no query or no column)
         get_registry().inc(PACKED_LAUNCHES,
-                           attrs={"form": _PACKED_FORMS[form.value]})
+                           attrs={"form": _FORMS[form.value]})
     return out
 
 
