@@ -12,10 +12,12 @@ result):
    one nvcc per source, all started together) for sm_90a from the checkout,
    prints each kernel's registers and spills (the ADC kernels one line per
    form, line width and FULL flag; B2's pipelined form one line per query
-   tile, a spill fails), and counts the warpgroup MMA (HGMMA) instructions
-   in the SASS (cuobjdump) of every instantiation of the exact pools'
-   kernels, B1, B2's streamed form and B2's pipelined form: none in any of
-   them, or no instantiation of one, fails;
+   tile and B1's wide form, a spill or other than 168 registers fails),
+   and counts the warpgroup MMA (HGMMA) instructions in the SASS
+   (cuobjdump) of every instantiation of the exact pools' kernels, B1, B1's
+   wide form, B2's streamed form and B2's pipelined form: none in any of
+   them, or no instantiation of one, fails; beside them it builds the exact
+   pool's copy-only variant (EXACT_POOL_FEED_ONLY) for phase 5;
 3. kernel vs plain on the card:
    - the exact-pool kernel (B1) at every shape a sift1m exact batch gives it
      (Q 512, D 128, L2: the 8-segment group, N 800,768, fold 8; the
@@ -23,8 +25,9 @@ result):
      with its first 20,000 rows valid, fold 1) and a Deep10M batch gives it
      (its ACTIVE brute table: N 1,000,064, D 128 from 96 unit features,
      fold 8), a gist1m batch gives it (Q 512, 960 clustered features
-     zero-padded to 1,024 lanes, L2: the 8- and the 2-segment group, the
-     streamed form at 64 queries a tile with chunk sums, its scores held to
+     zero-padded to 1,024 lanes and read over the 960 live ones, L2: the
+     8- and the 2-segment group, the wide form at 64 queries a block with
+     chunk sums, which the launch's counter must read, its scores held to
      3e-6 x scale where the others are held to 1e-5, since one accumulator
      over its 30 chunks read 7e-6 there), a cosine case
      with a zero-norm row, and a tail case (N not a multiple of the tile,
@@ -141,9 +144,11 @@ result):
    columns, in turns); for B1 also its
    useful TFLOP/s, the ceiling of its 3xTF32 form at the TF32 peak, and its
    times at the 2-segment group, the Deep10M brute table and GIST1M's two
-   groups of 960-feature rows in 1,024 lanes (its streamed form, with the
-   form and query tile its counter read, beside torch.matmul and the
-   bound); for B2 its useful
+   groups of 960-feature rows in 1,024 lanes (its wide form over the 960
+   live lanes, with the form and query tile its counter read, beside
+   torch.matmul, which it must beat at the 8-segment group, the bound, the
+   3xTF32 ceiling over the live lanes and the copy-only variant's feed in
+   TB/s); for B2 its useful
    TFLOP/s, 3xTF32 ceiling and bound both at the padded D 128 and at the
    96 live features the index asks for, beside torch.matmul of the padded
    and of the live product.
@@ -246,56 +251,78 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
 # --------------------------------------------------------------- phase 2
 
 
+# the exact pool's copy-only variant (csrc/exact_pool_tc.cu's
+# EXACT_POOL_FEED_ONLY: B1's wide form with its consumers reading nothing),
+# built beside the libraries to time the ring's feed in phase 5
+_FEED_ONLY = ("EXACT_POOL_FEED_ONLY",)
+
+
 def _build_all():
-    """Builds every csrc/*.cu library, one nvcc each, all started together;
-    returns {source: (path, compiler output, seconds)}."""
+    """Builds every csrc/*.cu library and the exact pool's copy-only
+    variant, one nvcc each, all started together; returns {source or
+    "feed_only": (path, compiler output, seconds)}."""
     from vectorsearch_torch.utils import cuda_build
 
-    sources = sorted({src for _n, src, _r in _KERNELS})
+    jobs = [(src, src, ()) for src in sorted({src for _n, src, _r in _KERNELS})]
+    jobs.append(("feed_only", "exact_pool_tc", _FEED_ONLY))
 
-    def one(src):
+    def one(job):
+        key, src, defines = job
         t0 = time.time()
-        path, out = cuda_build.build(src)
-        return src, (path, out, time.time() - t0)
+        path, out = cuda_build.build(src, defines)
+        return key, (path, out, time.time() - t0)
 
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        return dict(pool.map(one, sources))
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        return dict(pool.map(one, jobs))
 
 
 _EXACT_FORM = re.compile(
     r"exact_pool_(?:tc_kernel(?:<\d+, \w+, (\w+), \w+>|ILi\d+ELb[01]ELb([01])E)"
-    r"|pipelined_kernel(?:<(\d+)>|ILi(\d+)E))")
-_EXACT_FORMS = ("B1", "B2 streamed", "B2 pipelined")
+    r"|pipelined_kernel(?:<(\d+)>|ILi(\d+)E)|(wide)_kernel|(query_planes)_kernel)")
+# the forms that run on the tensor cores (every instantiation holds HGMMA)
+_EXACT_FORMS = ("B1", "B1 wide", "B2 streamed", "B2 pipelined")
 
 
 def _exact_form(name):
     """(form, NQW) of an exact-pool kernel from its demangled or mangled
     name: B1 or B2's streamed form (exact_pool_tc_kernel, its PACKED flag
-    the third template argument; NQW None) or B2's pipelined form
-    (exact_pool_pipelined_kernel<NQW>); None for any other name."""
+    the third template argument; NQW None), B2's pipelined form
+    (exact_pool_pipelined_kernel<NQW>), B1's wide form
+    (exact_pool_wide_kernel) or its prologue, which splits the query planes
+    (exact_pool_query_planes_kernel, "B1 query planes": no MMA); None for
+    any other name."""
     m = _EXACT_FORM.search(name)
     if m is None:
         return None
     if m.group(3) or m.group(4):
         return "B2 pipelined", int(m.group(3) or m.group(4))
+    if m.group(5):
+        return "B1 wide", None
+    if m.group(6):
+        return "B1 query planes", None
     packed = (m.group(1) or m.group(2)) in ("true", "1")
     return ("B2 streamed" if packed else "B1"), None
 
 
 def _pipelined_ptxas(compiler_out):
-    """{NQW: (registers, spill store bytes)} of every instantiation of B2's
-    pipelined form, from nvcc's ptxas -v output."""
-    out, nqw, spill = {}, None, None
+    """{form: (registers, spill store bytes)} of every instantiation of the
+    warp-specialised forms ("B2 pipelined NQW <n>", "B1 wide"), from nvcc's
+    ptxas -v output."""
+    out, key, spill = {}, None, None
     for line in compiler_out.splitlines():
         if "Compiling entry" in line:
             form = _exact_form(line)
-            nqw = form[1] if form and form[0] == "B2 pipelined" else None
+            key = None
+            if form and form[0] == "B2 pipelined":
+                key = f"B2 pipelined NQW {form[1]}"
+            elif form and form[0] == "B1 wide":
+                key = "B1 wide"
             spill = None
-        elif nqw is not None and "spill stores" in line:
+        elif key is not None and "spill stores" in line:
             spill = int(line.split("bytes spill stores")[0].split(",")[-1])
-        elif nqw is not None and "Used" in line and "registers" in line:
-            out[nqw] = (int(line.split("Used", 1)[1].split("registers")[0]), spill)
-            nqw = None
+        elif key is not None and "Used" in line and "registers" in line:
+            out[key] = (int(line.split("Used", 1)[1].split("registers")[0]), spill)
+            key = None
     return out
 
 
@@ -352,10 +379,13 @@ def _warpgroup_mmas(lib_path, kernel):
 
 
 def _case(name, n, metric, *, seed, zero_row=False, alive_frac=1.0, qn=512,
-          d=128, live_d=None, segs=None, live_rows=None, rtol=1e-5):
+          d=128, live_d=None, segs=None, live_rows=None, rtol=1e-5,
+          form=None):
     """Clustered rows and queries made on the card from a seed. `live_d`:
     only the first features are drawn, the rest are zeros (rows padded to
-    their lanes, as a segment stores them); `segs`: a stack of that many
+    their lanes, as a segment stores them), and the kernel reads only them
+    (d_live, as the index calls it); `form`: the form B1's launch must
+    count (the registry's counter), if given; `segs`: a stack of that many
     100,000-row segments; `live_rows`: only the first rows are valid (an
     ACTIVE segment's brute table); `rtol`: `_check_pool`'s tolerance over
     the case's scale."""
@@ -383,7 +413,8 @@ def _case(name, n, metric, *, seed, zero_row=False, alive_frac=1.0, qn=512,
         valid = valid & (torch.arange(n, device="cuda") < live_rows)
     if zero_row:
         x[7] = 0.0
-    return dict(name=name, q=q, x=x, valid=valid, metric=metric, rtol=rtol)
+    return dict(name=name, q=q, x=x, valid=valid, metric=metric, rtol=rtol,
+                live_d=live_d, form=form)
 
 
 def _near_ties(rank, tol):
@@ -405,9 +436,21 @@ def _check_pool(case, exact_ops, traversal_ops):
 
     from vectorsearch_torch.ops.distance import matmul_nt
 
+    from vectorsearch_torch.utils.metrics import get_registry
+
     q, x, valid, metric = case["q"], case["x"], case["valid"], case["metric"]
-    q_in, aux, geom = exact_ops.pool_inputs(q, x, valid, metric)
+    q_in, aux, geom = exact_ops.pool_inputs(q, x, valid, metric,
+                                            d_live=case.get("live_d"))
+    reg = get_registry()
+    before = reg.snapshot()["counters"]
     ks, ki = exact_ops.exact_pool_cuda(q_in, x, aux, **geom)
+    forms = sorted(k[len(exact_ops.LAUNCHES):] for k, v in
+                   reg.snapshot()["counters"].items()
+                   if k.startswith(exact_ops.LAUNCHES + "{")
+                   and v > before.get(k, 0.0))
+    if case.get("form") and not (len(forms) == 1
+                                 and f"'form': '{case['form']}'" in forms[0]):
+        raise AssertionError(f"{case['name']}: B1 took {forms}, not {case['form']}")
     ps, pi = exact_ops.exact_pool_plain(q_in, x, aux, **geom)
     torch.cuda.synchronize()
     qn = q.norm(dim=1)
@@ -493,8 +536,8 @@ def _check_pool(case, exact_ops, traversal_ops):
             f"{float(tol[qi])}")
     del s
     report = (
-        f"{case['name']}: N={n} W={geom['w']} fold={geom['fold']} "
-        f"max_abs_err={max_err:.3e} sep_bins={int(sep.sum())}/{int(live.sum())} "
+        f"{case['name']}: {', '.join(forms)} N={n} d_live={geom['d_live']} "
+        f"W={geom['w']} fold={geom['fold']} max_abs_err={max_err:.3e} sep_bins={int(sep.sum())}/{int(live.sum())} "
         f"final_ids_equal={int((k_i == p_i).sum())}/{k_i.numel()} "
         f"(near-tie positions {int(near.sum())}, differing ids of one bin "
         f"{int((differ & ~near & binmate).sum())})"
@@ -2305,15 +2348,55 @@ def _packed_timings(exact_ops, peaks, tag, pipe_regs):
     return out
 
 
+def _wide_feed(exact_ops, q_in, x, aux, geom):
+    """(ms, bytes) of the copy-only variant of B1's wide form (L2): its
+    ring fed as the kernel feeds it (each stage a 128-row box of x and the
+    chunk's two 64-query planes, 32 KB, from L2 or device memory), its
+    consumers reading nothing; the prologue that splits the query planes is
+    in the time. The bytes count the ring's stages alone."""
+    import ctypes
+
+    import torch
+
+    from vectorsearch_torch.utils import cuda_build
+
+    lib = cuda_build.load("exact_pool_tc", exact_ops._bind_tc, defines=_FEED_ONLY)
+    (qn, d), n, w = q_in.shape, x.shape[0], geom["w"]
+    outs = torch.empty((qn, w), dtype=torch.float32, device="cuda")
+    outi = torch.empty((qn, w), dtype=torch.int32, device="cuda")
+    nplane = exact_ops._wide_plane_floats(qn, geom["d_live"])
+    planes = torch.empty((nplane,), dtype=torch.float32, device="cuda")
+    form = (ctypes.c_int * 2)()
+
+    def run():
+        rc = lib.exact_pool_launch(
+            q_in.data_ptr(), x.data_ptr(), aux[0].data_ptr(), None,
+            outs.data_ptr(), outi.data_ptr(), qn, n, d, geom["d_live"],
+            geom["tile"], geom["bins"], geom["fold"], w, 0, planes.data_ptr(),
+            nplane, torch.cuda.current_stream().cuda_stream, form)
+        if rc != 0 or form[0] != 1:
+            raise AssertionError(f"copy-only wide form: rc {rc}, form {form[0]}")
+
+    span, bins = geom["fold"] * geom["tile"], geom["bins"]
+    steps = sum(min(-(-(n - f - b0) // bins), span // bins)
+                for f in range(0, w // bins * span, span)
+                for b0 in range(0, bins, 128) if f + b0 < n)
+    nbytes = steps * -(-geom["d_live"] // 32) * 32 * 1024 * -(-qn // 64)
+    return _time_ms(run, 10), nbytes
+
+
 def _gist_timings(exact_ops, peaks, tag):
     """B1 at GIST1M's two sealed groups' shapes (Q 512 x N 800,768 and
     200,192, rows of 960 features zero-padded to 1,024 lanes, as
-    gist1m.batch512's index holds them), the form and query tile each launch
-    took (the registry's counter), torch.matmul of the same product, and the
-    bound: bytes (the 960 live features of x, aux and q read once, the pool
+    gist1m.batch512's index holds them, read over the 960 live features as
+    the index asks: d_live), the form and query tile each launch took (the
+    registry's counter), torch.matmul of the same product, and the bound:
+    bytes (the 960 live features of x, aux and q read once, the pool
     written once) over the memory rate, or three split-bf16 passes of the
     live product over the bf16 tensor-core rate; beside it the 3xTF32
-    ceiling over all 1,024 lanes, which the kernel computes."""
+    ceiling over the 960 live lanes, which the wide form computes (and over
+    all 1,024); and the copy-only variant's feed (_wide_feed): the rate at
+    which the ring's stages reach shared memory."""
     import torch
 
     from vectorsearch_torch.utils.metrics import get_registry
@@ -2328,7 +2411,7 @@ def _gist_timings(exact_ops, peaks, tag):
         x[:, 960:] = 0.0
         q[:, 960:] = 0.0
         valid = torch.ones(n, dtype=torch.bool, device="cuda")
-        q_in, aux, geom = exact_ops.pool_inputs(q, x, valid, "L2")
+        q_in, aux, geom = exact_ops.pool_inputs(q, x, valid, "L2", d_live=960)
         before = reg.snapshot()["counters"]
         ms = _time_ms(lambda: exact_ops.exact_pool_cuda(q_in, x, aux, **geom), 10)
         forms = sorted(k[len(exact_ops.LAUNCHES):] for k, v in
@@ -2336,21 +2419,31 @@ def _gist_timings(exact_ops, peaks, tag):
                        if k.startswith(exact_ops.LAUNCHES + "{")
                        and v > before.get(k, 0.0))
         lib = _time_ms(lambda: torch.matmul(q_in, x.T), 10)
+        feed_ms, feed_bytes = _wide_feed(exact_ops, q_in, x, aux, geom)
         flops = 2 * 512 * n * 960
         nbytes = n * 960 * 4 + n * 4 + 512 * 960 * 4 + 512 * geom["w"] * 8
         bytes_ms = nbytes / peaks["bytes_s"] * 1e3
         ops_ms = 3 * flops / peaks["bf16"] * 1e3
-        tf32_ms = 3 * 2 * 512 * n * 1024 / peaks["tf32"] * 1e3
+        tf32_ms = 3 * flops / peaks["tf32"] * 1e3
+        tf32_all_ms = 3 * 2 * 512 * n * 1024 / peaks["tf32"] * 1e3
         _log(f"timing exact_pool {tag}: GIST1M {segs}-segment group, Q 512 x "
              f"N {n:,} x D 1,024 (960 live; fold {geom['fold']}, W "
              f"{geom['w']:,}): kernel ({', '.join(forms)}) {ms:.3f} ms "
              f"({flops / ms / 1e9:.1f} useful TFLOP/s), torch.matmul "
              f"{lib:.3f} ms, bound {max(bytes_ms, ops_ms):.3f} ms (operations "
              f"{ops_ms:.3f}, bytes {bytes_ms:.3f}), 3xTF32 ceiling over the "
-             f"1,024 lanes {tf32_ms:.3f} ms")
+             f"960 live lanes {tf32_ms:.3f} ms (over 1,024: {tf32_all_ms:.3f}); "
+             f"copy-only ring {feed_ms:.3f} ms, {feed_bytes / 1e9:.2f} GB at "
+             f"{feed_bytes / feed_ms / 1e9:.2f} TB/s")
+        if segs == 8 and ms >= lib:
+            raise AssertionError(
+                f"B1 at GIST1M's 8-segment group: {ms:.3f} ms, not under "
+                f"torch.matmul's {lib:.3f} ms")
         key = f"_gist_{segs}seg"
         out.update({f"ms{key}": ms, f"library_ms{key}": lib,
-                    f"bound_ms{key}": max(bytes_ms, ops_ms), f"form{key}": forms})
+                    f"bound_ms{key}": max(bytes_ms, ops_ms), f"form{key}": forms,
+                    f"tf32_ceiling_ms{key}": tf32_ms, f"feed_ms{key}": feed_ms,
+                    f"feed_tb_s{key}": feed_bytes / feed_ms / 1e9})
         del x, q, q_in, aux, valid
         torch.cuda.empty_cache()
     return out
@@ -2406,6 +2499,8 @@ def main() -> int:
     built = _build_all()
     for src, (path, compiler_out, secs) in sorted(built.items()):
         _log(f"build {tag}: {os.path.relpath(path, REPO)} in {secs:.1f} s")
+        if src == "feed_only":  # a measurement variant: its lines repeat
+            continue
         if src == "adc":  # one line per form, line width and FULL flag
             for line in _adc_ptxas(compiler_out):
                 _log(f"  ptxas {tag}: {line}")
@@ -2416,19 +2511,20 @@ def main() -> int:
     cuda_build.load("exact_pool_tc", exact_ops._bind_tc)
     adc_ops._load_kernel()
     _log(f"build {tag}: every library in {time.time() - t0:.1f} s")
-    # B2's pipelined form: 168 registers at launch (setmaxnreg hands the
-    # consumers 240), no spill; a library built before this run printed no
-    # ptxas lines
+    # B2's pipelined form and B1's wide form: 168 registers at launch
+    # (setmaxnreg hands the consumers 240), no spill; a library built before
+    # this run printed no ptxas lines
     pipe_regs = _pipelined_ptxas(built["exact_pool_tc"][1])
-    for nqw, (regs, spill) in sorted(pipe_regs.items()):
-        _log(f"  ptxas {tag}: B2 pipelined NQW {nqw}: {regs} registers, "
-             f"{spill} bytes spill stores")
+    for key, (regs, spill) in sorted(pipe_regs.items()):
+        _log(f"  ptxas {tag}: {key}: {regs} registers, {spill} bytes spill stores")
     if not built["exact_pool_tc"][1]:
         _log(f"  ptxas {tag}: exact_pool_tc was built before this run, "
              "no ptxas lines to check")
-    elif not pipe_regs or any(sp != 0 for _r, sp in pipe_regs.values()):
+    elif ("B1 wide" not in pipe_regs or len(pipe_regs) < 2
+          or any(sp != 0 or r != 168 for r, sp in pipe_regs.values())):
         raise AssertionError(
-            f"exact_pool_pipelined_kernel: spills or no instantiation: {pipe_regs}")
+            f"B2 pipelined / B1 wide: spills, registers other than 168 or no "
+            f"instantiation: {pipe_regs}")
     # B1 and B2 run on the tensor cores: warpgroup MMA in each instantiation
     # of both kernels (B1, B2 streamed, B2 pipelined)
     mmas = _warpgroup_mmas(built["exact_pool_tc"][0], "exact_pool_")
@@ -2464,14 +2560,16 @@ def main() -> int:
         _case("mesh shard, N 25,024 (L2)", 25_024, "L2", seed=7),
         _case("one segment, N 100,096 (L2)", 100_096, "L2", seed=8),
         _case("sift1m 4-segment group (L2)", 4 * 100_096, "L2", seed=9, segs=4),
-        # gist1m.batch512's two groups: 960 features in 1,024 lanes, the
-        # streamed form at 64 queries a tile, with chunk sums. rtol 3e-6:
+        # gist1m.batch512's two groups: 960 live features in 1,024 lanes,
+        # the wide form at 64 queries a block, with chunk sums. rtol 3e-6:
         # one accumulator over the 30 chunks (the fault the sums repaired)
         # read 6.7-7.0e-6 x scale here, the chunk sums 1.1e-6 (one H100)
         _case("GIST1M 8-segment group, 960 of 1,024 lanes (L2)", 8 * 100_096,
-              "L2", seed=10, d=1024, live_d=960, segs=8, rtol=3e-6),
+              "L2", seed=10, d=1024, live_d=960, segs=8, rtol=3e-6,
+              form="pipelined"),
         _case("GIST1M 2-segment group, 960 of 1,024 lanes (L2)", 2 * 100_096,
-              "L2", seed=11, d=1024, live_d=960, segs=2, rtol=3e-6),
+              "L2", seed=11, d=1024, live_d=960, segs=2, rtol=3e-6,
+              form="pipelined"),
     ]
     max_err = {name_: 0.0 for name_, _s, _r in _KERNELS}
     for case in cases:

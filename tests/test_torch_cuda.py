@@ -66,15 +66,15 @@ def cuda():
     (50_123, None, None, 128, 100, 1e3),
     # Q x W of a single block: one query tile, one column block (W 128)
     (3 * 512 + 123, 512, 4, 128, 100, 1.0),
-    # wide rows: the widest whose query planes stay resident at 8 queries a
-    # tile, one feature more (streamed, 4-byte copies), and a published
-    # embedding width (streamed, 64 queries a tile)
+    # wide rows: a width whose rows TMA takes (the wide form), one feature
+    # more (a row stride no multiple of 16 bytes: streamed, 4-byte copies),
+    # and a published embedding width (the wide form)
     (20_123, None, None, 2464, 3, 1.0),
     (20_123, None, None, 2465, 3, 1.0),
     (20_123, None, None, 3072, 100, 1.0),
     # GIST1M's rows (960 features in 1,024 lanes, the lanes past them
-    # zeros) at its 2-segment group, as gist1m.batch512 sends them
-    # (streamed, 64 queries a tile, chunk sums)
+    # zeros) at its 2-segment group, as gist1m.batch512 sends them (the
+    # wide form, 64 queries a block, chunk sums)
     (2 * 100_096, None, None, 1024, 512, 1.0),
 ])
 def test_kernel_matches_plain(cuda, rng, metric, n, tile, fold, d, qn, scale):
@@ -90,11 +90,12 @@ def test_kernel_matches_plain(cuda, rng, metric, n, tile, fold, d, qn, scale):
     if tile == 512 and fold == 4:
         assert geom["w"] == 128
     # the form and the queries a block the kernel takes at each (D, Q) above:
-    # resident planes while they fit in shared memory, else streamed
+    # rows over 128 features that TMA takes the wide (pipelined) form;
+    # others resident planes while they fit in shared memory, else streamed
     form = {(128, 1): ("resident", 8), (128, 64): ("resident", 64),
-            (2464, 3): ("resident", 8),
-            (2465, 3): ("streamed", 8), (3072, 100): ("streamed", 64),
-            (1024, 512): ("streamed", 64)}.get((d, qn), ("resident", 128))
+            (2464, 3): ("pipelined", 64),
+            (2465, 3): ("streamed", 8), (3072, 100): ("pipelined", 64),
+            (1024, 512): ("pipelined", 64)}.get((d, qn), ("resident", 128))
     registry = get_registry()
     counts = (registry.counter_value(te.LAUNCHES),
               registry.counter_value(te.LAUNCHES, {"form": form[0], "tile": form[1]}))
@@ -120,11 +121,75 @@ def test_kernel_matches_plain(cuda, rng, metric, n, tile, fold, d, qn, scale):
     assert agree > 0.999, agree
 
 
+@pytest.mark.parametrize("metric", ["L2", "COSINE"])
+@pytest.mark.parametrize("n,tile,fold,d,d_live,qn,dead_last", [
+    # GIST1M's rows (960 live of 1,024 lanes) at the batch sizes a client
+    # sends: one query, a partial query tile, one query past a tile
+    (50_123, None, None, 1024, 960, 1, False),
+    (50_123, None, None, 1024, 960, 77, False),
+    (50_123, None, None, 1024, 960, 513, False),
+    # a live width that leaves the last 32-feature chunk part empty
+    (50_123, None, None, 1024, 1000, 100, False),
+    (20_123, None, None, 256, 200, 100, False),
+    # N ragged against the slice and the fold: a part slice, a part group
+    (3 * 512 + 123, 512, 2, 1024, 960, 100, False),
+    (5 * 512 + 77, 512, 4, 1024, 960, 40, False),
+    # the last group's rows all invalid: its bins dead
+    (40_000, None, 2, 1024, 960, 100, True),
+])
+def test_wide_form_matches_plain(cuda, rng, metric, n, tile, fold, d, d_live,
+                                 qn, dead_last):
+    """B1's wide form (rows over 128 live features that TMA takes: its own
+    mainloop, the query planes split once a launch) against the plain
+    version, at the tolerance of test_kernel_matches_plain, reading only
+    the d_live live features; every launch counts form ``pipelined``, 64
+    queries a block."""
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[7] = 0.0
+    q = rng.normal(size=(qn, d)).astype(np.float32)
+    x[:, d_live:] = 0.0
+    q[:, d_live:] = 0.0
+    valid = rng.random(n) > 0.1
+    args = [torch.from_numpy(a).to(cuda) for a in (q, x, valid)]
+    q_in, aux, geom = te.pool_inputs(*args, metric=metric, tile_n=tile,
+                                     fold=fold, d_live=d_live)
+    assert geom["d_live"] == d_live
+    span, bins = geom["fold"] * geom["tile"], geom["bins"]
+    last = (n - 1) // span  # the last group
+    if dead_last:
+        valid[last * span:] = False
+        args[2] = torch.from_numpy(valid).to(cuda)
+        q_in, aux, geom = te.pool_inputs(*args, metric=metric, tile_n=tile,
+                                         fold=fold, d_live=d_live)
+    registry = get_registry()
+    key = {"form": "pipelined", "tile": 64}
+    counts = (registry.counter_value(te.LAUNCHES), registry.counter_value(te.LAUNCHES, key))
+    ks, ki = te.exact_pool_cuda(q_in, args[1], aux, **geom)
+    assert (registry.counter_value(te.LAUNCHES),
+            registry.counter_value(te.LAUNCHES, key)) == (counts[0] + 1, counts[1] + 1)
+    ps, pi = te.exact_pool_plain(q_in, args[1], aux, **geom)
+    torch.cuda.synchronize()
+    ks, ki, ps, pi = (t.cpu().numpy() for t in (ks, ki, ps, pi))
+    qnorm = np.linalg.norm(q, axis=1)
+    mx = np.linalg.norm(x, axis=1).max()
+    bound = qnorm if metric == "COSINE" else 2 * qnorm * mx + mx * mx
+    live = np.isfinite(ps)
+    np.testing.assert_array_equal(np.isfinite(ks), live)
+    if dead_last:
+        assert not live[:, last * bins:].any()
+        assert (ki[:, last * bins:] == -1).all()
+    assert (np.abs(ks[live] - ps[live]) <= np.broadcast_to(
+        1e-5 * bound[:, None], ks.shape)[live]).all()
+    assert valid[ki[live]].all()
+    agree = np.mean(ki[live] == pi[live])
+    assert agree > 0.999, agree
+
+
 def test_kernel_distances_hold_float32_at_gist_rows(cuda):
     """B1 at GIST1M's rows (960 features in 1,024 lanes, clustered as the
     gist1m-exact configuration draws them: centres of scale 4, unit noise;
     64 centres, so each query has close neighbours) and 512 queries (the
-    streamed form, 64 a tile): every live bin's score, made a distance as
+    wide form, 64 a block): every live bin's score, made a distance as
     exact_finalize makes it, sqrt(|q|^2 - s), lies within 2e-5 of the
     winning row's float64 distance, relative, the tolerance of
     tests/test_torch_wide_rows.py, whose emulation of the tensor cores puts

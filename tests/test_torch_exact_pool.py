@@ -372,3 +372,57 @@ def test_three_tf32_scores_within_pool_tolerance(rng, metric, scale):
     assert (err3 <= tol / 10).all(), float((err3 / tol).max())
     err1 = (scores((_tf32_rna(q_in) @ _tf32_rna(tx).T).double()) - want).abs()
     assert (err1 > tol).any()
+
+
+# ------------------------------------------------- the live width, d_live
+
+
+@pytest.mark.parametrize("metric", ["L2", "COSINE"])
+def test_scored_pool_with_d_live_equals_the_full_width(metric):
+    """exact_pool_scored with d_live (the features past it zero, as the
+    index lane-pads its rows) gives the pool it gives without: the same
+    scores and ids, bit for bit, in both metrics; the geometry carries the
+    live width, and the tile stays the padded D's."""
+    rng = np.random.default_rng(960)
+    n, d, live = 5_000, 256, 200
+    x = np.zeros((n, d), np.float32)
+    x[:, :live] = rng.normal(size=(n, live))
+    q = np.zeros((40, d), np.float32)
+    q[:, :live] = rng.normal(size=(40, live))
+    valid = rng.random(n) > 0.1
+    args = [torch.from_numpy(a) for a in (q, x, valid)]
+    full = te.exact_pool_scored(*args, ef_buf=64, metric=metric, packed=False)
+    part = te.exact_pool_scored(*args, ef_buf=64, metric=metric, packed=False,
+                                d_live=live)
+    assert torch.equal(full[0], part[0]) and torch.equal(full[1], part[1])
+    _q_in, _aux, geom = te.pool_inputs(*args, metric=metric, d_live=live)
+    assert geom["d_live"] == live
+    assert te.pool_inputs(*args, metric=metric)[2] == dict(geom, d_live=d)
+
+
+@pytest.mark.parametrize("d_live", [0, -3, 257])
+def test_kernel_wrapper_rejects_d_live_before_loading(monkeypatch, d_live):
+    """exact_pool_cuda refuses a live width outside 1 .. D before it loads
+    (or builds) the library or checks the tensors' device."""
+    def no_library(*a, **k):
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(te.cuda_build, "load", no_library)
+    with pytest.raises(ValueError, match="d_live"):
+        te.exact_pool_cuda(torch.zeros(2, 256), torch.zeros(16, 256),
+                           torch.zeros(1, 16), metric="L2", tile=512, bins=128,
+                           fold=1, w=128, d_live=d_live)
+
+
+@pytest.mark.parametrize("qn,d_live,floats", [
+    (512, 128, 0), (512, 96, 0), (1, 100, 0),
+    # rows over 128 live features take the wide form's scratch: two planes
+    # of 64 queries x 32 features a query tile and a chunk
+    (512, 960, 8 * 960 * 128), (1, 129, 160 * 128), (65, 1000, 2 * 1024 * 128),
+    (513, 960, 9 * 960 * 128), (64, 960, 960 * 128),
+])
+def test_wide_form_scratch_size(qn, d_live, floats):
+    """The query planes' scratch the wrapper hands B1's wide form
+    (csrc/exact_pool_tc.cu's wide_plane_floats): 3.9 MB at GIST1M's batch,
+    none on rows of up to 128 live features."""
+    assert te._wide_plane_floats(qn, d_live) == floats

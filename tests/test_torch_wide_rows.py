@@ -175,3 +175,36 @@ def test_chunk_sums_keep_float32_distances_at_gist_width():
 
     assert rel_err(True) <= RTOL
     assert rel_err(False) > 2 * RTOL
+
+
+def test_exact_route_hands_the_pool_the_logical_width(monkeypatch):
+    """core/index.py's exact route gives the binned pool d_live = the
+    index's logical width (960) on rows lane-padded to 1,024, so B1 on the
+    card reads 30 32-feature chunks, not 32 (its plain form on the CPU,
+    reached here by lowering MIN_ROWS), and the answers stay exact."""
+    with open(CONFIG) as f:
+        cfg = json.load(f)
+    seg = 4_200
+    rows, q = _gist_like(3 * seg, 8, 2**31 + 962)
+    monkeypatch.setattr(te, "MIN_ROWS", 4_096)
+    seen = []
+    plain = te.exact_pool_plain
+
+    def spy(q_in, x, aux, **geom):
+        seen.append((x.shape[1], q_in.shape[1], geom["d_live"]))
+        return plain(q_in, x, aux, **geom)
+
+    monkeypatch.setattr(te, "exact_pool_plain", spy)
+    idx = tvs.VectorIndex.create_or_open(tvs.VectorIndexConfig(
+        storage=tvs.MemoryStorage(), name="gist", device="cpu",
+        **dict(cfg["index"], max_segment_size=seg)))
+    try:
+        gids = np.asarray(idx.add_all(rows), np.int64)
+        for sid in range(3):
+            idx.build_service.build(sid)
+        got, _s, _d = idx.query_batch_arrays(q, K)
+    finally:
+        idx.close()
+    assert seen and all(s == (1024, 1024, 960) for s in seen), seen
+    d2 = ((q[:, None, :].astype(np.float64) - rows[None, :, :]) ** 2).sum(-1)
+    assert (got[:, 0] == gids[d2.argmin(axis=1)]).all()

@@ -220,7 +220,7 @@ def _sealed_exact_pool_scored(q, vectors, valid, xn2, *, ef_buf, metric):
     full-f32 score matrix and an exact top-k. Callers pass ``valid=alive``:
     an exact ranking without tombstones equals dropping them at re-rank.
     q has the index's logical width; the rows' lane-pad columns are zero,
-    and the packed kernel skips them (``d_live``)."""
+    and both pool kernels skip them (``d_live``)."""
     d_live = q.shape[1]
     q = _pad_cols(q, vectors.shape[1])
     if exact_ops.use_fused_exact_pool(vectors.shape[0], vectors.shape[1], ef_buf):

@@ -2,11 +2,14 @@
 // of the TPU kernels vectorsearch_tpu/ops/pallas/exact.py::_pool_kernel
 // (B1, reached through exact_bin_pool; launched through exact_pool_launch
 // below) and ::_packed_pool_kernel (B2, reached through
-// exact_bin_pool_packed; launched through exact_pool_packed_launch). Two
-// mainloops serve them: exact_pool_tc_kernel (B1, and B2's streamed form
-// through its PACKED flag) and exact_pool_pipelined_kernel (B2's resident
-// form). They share no mainloop logic, only the small helpers (the TF32
-// split, the wgmma wrappers, the descriptors, the query planes' layout).
+// exact_bin_pool_packed; launched through exact_pool_packed_launch). Three
+// mainloops serve them: exact_pool_tc_kernel (B1 on rows of up to 128
+// features and on rows TMA cannot take, and B2's streamed form through its
+// PACKED flag), exact_pool_pipelined_kernel (B2's resident form) and
+// exact_pool_wide_kernel (B1 on wider rows, after its prologue
+// exact_pool_query_planes_kernel). They share no mainloop logic, only the
+// small helpers (the TF32 split, the wgmma wrappers, the descriptors, the
+// query planes' layout, the TMA and mbarrier wrappers).
 //
 // B1's function (the TPU kernel's, so the two pools compare directly): for
 // each query q and each pool column (group g, bin b), the max over the rows
@@ -32,8 +35,8 @@
 // sqrtf and rintf.
 //
 // Both read features 0 .. dl-1 of each row (dl <= D, the row stride): the
-// index lane-pads rows with zero columns (Deep10M: 96 -> 128), which add
-// exact zeros to every product, so they are skipped.
+// index lane-pads rows with zero columns (Deep10M: 96 -> 128, GIST1M: 960
+// -> 1,024), which add exact zeros to every product, so they are skipped.
 //
 // What bounds it on an H100: a [Q, N] x [N, dl] product folded into a
 // per-bin reduction, so the [Q, N] score matrix never reaches device memory.
@@ -68,7 +71,7 @@
 // over 128 features;
 // tests/test_torch_exact_packed.py emulates it).
 //
-// Both mainloops put the product on the tensor cores as warpgroup MMA
+// The mainloops put the product on the tensor cores as warpgroup MMA
 // (wgmma m64nNk8 TF32) with x in registers as the A operand (split into big
 // and small by the consumer threads) and the query tile in shared memory as
 // B, split once into two planes in wgmma's K-major layout (no swizzle: 8x4
@@ -102,13 +105,67 @@
 // power of two up to 128 that Q needs; the resident planes take
 // 2 * NQ * ceil32(dl) * 4 bytes beside the rings (72 KB): dl up to 128 at NQ
 // 128, 288 at NQ 64, 576 at NQ 32. NQ halves (not below 32, or what Q needs)
-// until they fit. Wider rows take the streamed form (SQ): each ring stage
-// also brings the query tile's 32 features of that step, which the
-// warpgroup splits into planes of its own before its MMAs (one more named
-// barrier per step), at NQ up to 64. The main path's shapes are D 128 (NQ
-// 128, resident) and GIST1M's D 1,024 (NQ 64, streamed, CHUNK_SUM). B2's
-// streamed form runs the same loop with a ring of 3 stages (its packed
-// plane takes the fourth's room) and CHUNK_SUM.
+// until they fit. Wider rows that TMA cannot take (below) take the
+// streamed form (SQ): each ring stage also brings the query tile's 32
+// features of that step, which the warpgroup splits into planes of its own
+// before its MMAs (one more named barrier per step), at NQ up to 64. B1's
+// main path here is D 128 (NQ 128, resident: sift1m's kNN seal route, the
+// mesh, Deep10M's brute table). B2's streamed form runs the same loop with
+// a ring of 3 stages (its packed plane takes the fourth's room) and
+// CHUNK_SUM.
+//
+// B1 wide (exact_pool_wide_kernel): rows over 128 live features (kq > 128)
+// whose x a tensor map takes (row stride and address multiples of 16
+// bytes) and whose column blocks fit the grid (65,535). What bound the
+// streamed form at GIST1M (Q 512, N 800,768, D 1,024 with 960 live: 26.9
+// ms against its 3xTF32 ceiling of 4.77 ms over the live lanes, and
+// torch.matmul's 16.9): each warpgroup split the query tile's raw features
+// into planes at every step (a named barrier more), waited for its MMAs at
+// every chunk (wgmma.wait_group 0, so the splits and chunk sums never ran
+// under them), spent its threads' instructions on cp.async addresses, and
+// multiplied the 64 zero lane-pad columns (it had no dl). This form:
+// - The query planes are split once a launch, by a prologue kernel
+//   (exact_pool_query_planes_kernel) into a scratch the wrapper allocates
+//   (wide_plane_floats: 3.9 MB at Q 512 x 960), chunk by chunk in wgmma's
+//   layout, cvt.rna as before; the ring brings each chunk's two planes
+//   beside x by one bulk copy.
+// - B2's warp specialisation: 384 threads, setmaxnreg 24 / 240; thread 0
+//   of the producer warp issues a stage's copies (x's 128 rows x 32
+//   features as one TMA box, 128-byte swizzled, zeros past N and past dl;
+//   the planes, 16 KB), its warp the slice's column terms at
+//   the slice's last chunk (cp.async), all on the stage's full mbarrier;
+//   the consumers spend no instruction on a copy.
+// - One MMA wait a chunk, as B2's: two accumulators and two sets of x
+//   fragments, chunk c+1's 12 MMAs committed before wgmma.wait_group 1 on
+//   chunk c, whose chunk-sum add (and, once every 30 chunks at GIST1M, the
+//   slice epilogue) runs under them. The x split in integer operations
+//   (split_tf32_int).
+// - The tile: a block takes 128 rows (pool columns) x 64 queries, each
+//   consumer warpgroup 64 rows against the stage's 64-query planes (64
+//   registers of accumulators, 32 of chunk sums, 32 running maxima, 16 of
+//   16-bit slices: 168 registers at launch, no spill). Of the two tiles the
+//   register file allows, this one pulls the fewer bytes from L2: N * Q *
+//   dl * (4/64 + 8/128), 49.2 GB at GIST1M's 8-segment group against 61.5
+//   GB for 64 rows x 128 queries. blockIdx.x is the query tile, so x comes
+//   from device memory about once.
+// - The feed: the copy-only variant (EXACT_POOL_FEED_ONLY: the consumers
+//   wait for each stage and hand it back) moved those 49.2 GB in 5.7-6.0
+//   ms, 8.2-8.8 TB/s from L2 on one H100; the MMAs and instructions alone
+//   (no copies) ran 5.9 ms; the kernel 6.5-7.3 ms, which asks 6.8-7.5 TB/s
+//   of the ring, 80-90% of its copy-only rate. TMA multicast of x over a
+//   cluster of two neighbouring query tiles (37 GB) ran 2x slower (13.6-14.0
+//   ms; its copy-only variant 9.1 ms), with 4 stages or 6; 6 stages without
+//   it ran as 4, 3 ran 15% slower.
+// Same arithmetic as the streamed form: 3xTF32 in the same pass order,
+// chunk sums over 32 features added in order, slices ascending on `>`; its
+// scores and ids were bit-identical to the streamed form's at GIST1M's two
+// group shapes, L2 and cosine, on the card.
+// Shared memory (4 stages):
+//   ring, 4 stages x (16 KB of x + 2 x 8 KB of query planes)  131,072
+//   column terms, 4 stages x 2 x 128 x 4 B                        4,096
+//   mbarriers, 8 x 8 B                                               64
+//   alignment to the swizzle's 1,024-byte period                  1,024
+//   total                                                       136,256
 //
 // B2 pipelined (exact_pool_pipelined_kernel), its resident form. What bound
 // the shared mainloop at Deep10M (Q 512, N 8,000,512, dl 96: 11.1 ms
@@ -390,6 +447,8 @@ struct PoolArgs {
   int* out_i;         // [Q, W] B1's row ids
   int Q, N, D, dl, kq, tile, bins, fold, W, cosine, vec;
   float slot_f;       // B2's F
+  float* qp;          // B1 wide: the query planes' scratch (wide_plane_floats)
+  long long qp_floats;
 };
 
 // Ring depth: B2 gives a stage up to make room for its packed plane.
@@ -1153,6 +1212,358 @@ __global__ void __launch_bounds__(P_THREADS, 1)
     }
 }
 
+// ------------------------------------------------- B1 pipelined (wide rows)
+
+constexpr int W_NQ = 64;                    // queries a block
+constexpr int W_STAGES = 4;                 // ring depth
+constexpr int W_X = ROWS * KC;              // floats of x a stage: one TMA box, 16 KB
+constexpr int W_PLANE = W_NQ * KC;          // floats of one query plane a stage, 8 KB
+constexpr int W_STAGE = W_X + 2 * W_PLANE;  // floats a stage, 32 KB
+
+// Floats of the query planes' scratch: for each query tile of 64 and each
+// 32-feature chunk, its big and its small plane [64 x 32] in wgmma's layout.
+__host__ __device__ __forceinline__ long long wide_plane_floats(int Q, int kq) {
+  return (long long)((Q + W_NQ - 1) / W_NQ) * (kq / KC) * 2 * W_PLANE;
+}
+
+// Bytes of shared memory of the wide form (the head of the file itemizes
+// them).
+size_t wide_smem_bytes() {
+  return 1024 + sizeof(float) * (size_t)W_STAGES * (W_STAGE + 2 * ROWS) +
+         2 * W_STAGES * sizeof(uint64_t);
+}
+
+// One 16-byte-aligned run of bytes from global into shared memory by the
+// bulk copy engine, completed on the barrier.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const float* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// The wide form's prologue: the query planes, split once a launch (zeros
+// past Q and past dl). Chunk c of query tile t: its big plane at
+// qp[(t * nch + c) * 2 * W_PLANE ..], element o in plane_pos's layout at 32
+// features, then its small plane.
+__global__ void exact_pool_query_planes_kernel(const PoolArgs a) {
+  const int nch = a.kq / KC;
+  const long long total = wide_plane_floats(a.Q, a.kq) / 2;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    const int o = (int)(e % W_PLANE);
+    const long long tc = e / W_PLANE;  // t * nch + c
+    const int c = (int)(tc % nch), t = (int)(tc / nch);
+    int n, k;
+    plane_pos(o, KC, n, k);
+    const int qi = t * W_NQ + n, f = c * KC + k;
+    const float v = (qi < a.Q && f < a.dl) ? a.q[(long long)qi * a.D + f] : 0.f;
+    uint32_t big, small;
+    split_tf32(v, big, small);
+    float* dst = a.qp + tc * 2 * W_PLANE;
+    dst[o] = __uint_as_float(big);
+    dst[W_PLANE + o] = __uint_as_float(small);
+  }
+}
+
+// Shared memory (from a 1,024-byte boundary): the ring of W_STAGES stages,
+// each [128 x 32] of x (128-byte swizzled) then the chunk's big and small
+// query planes [64 x 32]; each stage's column terms [2 x 128]; the full and
+// the empty mbarriers. Threads 0-127 are the producer warpgroup (its warp 0
+// issues the copies), 128-383 the two consumer warpgroups: warpgroup w
+// takes rows 64w .. 64w + 63 of each slice against the block's 64 queries.
+__global__ void __launch_bounds__(P_THREADS, 1)
+    exact_pool_wide_kernel(const __grid_constant__ PoolArgs a,
+                           const __grid_constant__ CUtensorMap xmap) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  float* cols = ring + W_STAGES * W_STAGE;  // each stage's aux0, aux1 of its 128 rows
+  const uint32_t ring_s = smem_addr(ring);
+  const uint32_t full_s = smem_addr(cols + W_STAGES * 2 * ROWS);
+  const uint32_t empty_s = full_s + 8 * W_STAGES;
+  const int N = a.N, bins = a.bins;
+  const int tid = threadIdx.x;
+  const int col_blocks = bins / ROWS;
+  const int grp = blockIdx.y / col_blocks;
+  const int b0 = (blockIdx.y % col_blocks) * ROWS;
+  const long long first = (long long)grp * a.fold * a.tile + b0;
+  const int slices = a.fold * (a.tile / bins);
+  // slices holding rows < N (later ones lie further past N)
+  const int nsl = first >= N ? 0
+      : (int)(((N - first + bins - 1) / bins) < slices
+                  ? (N - first + bins - 1) / bins : slices);
+  const int nch = a.kq / KC;  // ring stages per slice
+  const int steps = nsl * nch;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < W_STAGES; ++i) {
+      mbar_init(full_s + 8 * i, 1 + 32);  // the copies' thread, the column terms' warp
+      mbar_init(empty_s + 8 * i, P_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < WG_THREADS) {
+    // the producer warp: step s = (slice s / nch, chunk c = s % nch) into
+    // stage s % W_STAGES once the consumers have left it. Thread 0 copies
+    // x's box by TMA and the chunk's query planes by the bulk copy engine;
+    // at a slice's last chunk the warp copies its column terms by cp.async
+    // (zeros past N). Each lane's arrival, after its copies, counts on the
+    // full barrier.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(P_PRODUCER_REGS));
+    if (tid < 32) {
+      const bool cosine = a.cosine != 0;
+      const float* qsrc = a.qp + (long long)blockIdx.x * nch * 2 * W_PLANE;
+      int c = 0, row = (int)first, st = 0;
+      uint32_t ph = 0;
+      for (int s = 0; s < steps; ++s) {
+        const uint32_t full = full_s + 8 * st;
+        if (s >= W_STAGES) mbar_wait(empty_s + 8 * st, ph ^ 1);
+        if (tid == 0) {
+          const uint32_t dst = ring_s + (uint32_t)(st * W_STAGE) * sizeof(float);
+          mbar_expect_tx(full, W_STAGE * sizeof(float));
+          tma_load_2d(dst, &xmap, c * KC, row, full);
+          bulk_load(dst + W_X * sizeof(float), qsrc + (long long)c * 2 * W_PLANE,
+                    2 * W_PLANE * sizeof(float), full);
+        }
+        if (c == nch - 1) {
+          const uint32_t dst = smem_addr(cols + st * 2 * ROWS);
+#pragma unroll
+          for (int k = 0; k < ROWS; k += 32) {
+            const int r = row + k + tid;
+            const bool ok = r < N;
+            cp_async4(dst + 4 * (k + tid), ok ? a.aux0 + r : a.aux0, ok);
+            if (cosine)
+              cp_async4(dst + 4 * (ROWS + k + tid), ok ? a.aux1 + r : a.aux1, ok);
+          }
+        }
+        asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                     :: "r"(full) : "memory");
+        if (++c == nch) {
+          c = 0;
+          row += bins;
+        }
+        if (++st == W_STAGES) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(P_CONSUMER_REGS));
+  const int ct = tid - WG_THREADS;  // consumer thread 0 .. 255
+  // its warpgroup, warp-uniform as the compiler sees it
+  const int wg = __shfl_sync(0xFFFFFFFFu, ct >> 7, 0);
+  const int lane = ct & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // this thread's rows in the slice: lr, lr + 8
+  const int lr = wg * 64 + ((ct & 127) >> 5) * 16 + g;
+  const int Q = a.Q;
+  const int q0 = blockIdx.x * W_NQ;
+  const bool cosine = a.cosine != 0;
+
+  // acc[b][4j + 2h + e] (and sum, best) is row lr + 8h, query q0 + 8j + 2t
+  // + e. The winning slices in the group: 16 bits, two a register.
+  constexpr int NA = W_NQ / 2;
+  float acc[2][NA], best[NA], sum[NA];
+  uint32_t fb[2][4][4], fs[2][4][4], slot[NA / 2];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+    acc[0][i] = 0.f;
+    acc[1][i] = 0.f;
+    best[i] = -CUDART_INF_F;
+    sum[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < NA / 2; ++i) slot[i] = 0xFFFFFFFFu;
+
+  // Where a step lies: chunk c of slice sl, in stage st of ring phase ph.
+  struct Pos {
+    int c, sl, st;
+    uint32_t ph;
+  };
+  auto next = [&](Pos p) {
+    if (++p.c == nch) {
+      p.c = 0;
+      ++p.sl;
+    }
+    if (++p.st == W_STAGES) {
+      p.st = 0;
+      p.ph ^= 1;
+    }
+    return p;
+  };
+
+#ifdef EXACT_POOL_FEED_ONLY
+  // the feed alone (chip_smoke.py times it): each stage waited for and
+  // handed back, nothing read
+  for (Pos p{0, 0, 0, 0}; p.sl < nsl; p = next(p)) {
+    mbar_wait(full_s + 8 * p.st, p.ph);
+    __syncwarp();
+    mbar_arrive_lane0(empty_s + 8 * p.st, lane);
+  }
+#else
+  // the fragment loads' byte offsets in a stage's x: unit u of row lr lies
+  // at lr * 128 + (u ^ g) * 16 (lr & 7 is g), which is frag ^ (u << 4); row
+  // lr + 8 lies 1,024 bytes on
+  const uint32_t frag = lr * 128 + g * 16 + t * 4;
+
+  // Step p into buffer B: wait for its stage, split the warp's fragments of
+  // x (rows lr, lr + 8; features t, t + 4 of each k8), commit the chunk's
+  // 12 MMAs against the stage's query planes (small terms first: the
+  // chunk's first product overwrites the accumulator). The stage goes back
+  // to the producer in finish.
+  auto issue = [&](auto buf, Pos p) {
+    constexpr int B = decltype(buf)::value;
+    mbar_wait(full_s + 8 * p.st, p.ph);
+    const unsigned char* stage =
+        reinterpret_cast<const unsigned char*>(ring + p.st * W_STAGE);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const float* p0 = reinterpret_cast<const float*>(stage + (frag ^ (2 * ks << 4)));
+      const float* p1 = reinterpret_cast<const float*>(stage + (frag ^ ((2 * ks + 1) << 4)));
+      split_tf32_int(p0[0], fb[B][ks][0], fs[B][ks][0]);
+      split_tf32_int(p0[256], fb[B][ks][1], fs[B][ks][1]);
+      split_tf32_int(p1[0], fb[B][ks][2], fs[B][ks][2]);
+      split_tf32_int(p1[256], fb[B][ks][3], fs[B][ks][3]);
+    }
+#pragma unroll
+    for (int i = 0; i < NA; ++i) reg_fence(acc[B][i]);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    const uint32_t pb = ring_s + (uint32_t)(p.st * W_STAGE + W_X) * sizeof(float);
+    const uint32_t ps = pb + W_PLANE * sizeof(float);
+    auto desc = [&](uint32_t plane, int ks) {
+      return smem_desc(plane + (uint32_t)ks * 256, 128, KC * 32);
+    };
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) Wgmma<W_NQ>::run(acc[B], fs[B][ks], desc(pb, ks), ks != 0);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) Wgmma<W_NQ>::run(acc[B], fb[B][ks], desc(ps, ks), 1);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) Wgmma<W_NQ>::run(acc[B], fb[B][ks], desc(pb, ks), 1);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  };
+
+  // Step p's chunk in buffer B, its MMAs complete: into the slice's sum;
+  // at the slice's last chunk keep (score, slice) on `>`. Then its stage
+  // goes back to the producer (its column terms were read last).
+  auto finish = [&](auto buf, Pos p) {
+    constexpr int B = decltype(buf)::value;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) reg_fence(acc[B][i]);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        reg_fence(fb[B][ks][f]);
+        reg_fence(fs[B][ks][f]);
+      }
+    if (p.c == 0) {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) sum[i] = 0.f + acc[B][i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) sum[i] += acc[B][i];
+    }
+    if (p.c == nch - 1) {
+      // rows lr and lr + 8's column terms as one FFMA, score = sum * m + c:
+      // L2 (1, -aux0), exact as sum - aux0; cosine (aux0, aux1); a row past
+      // N (0, -inf), which never wins
+      const float* cl = cols + p.st * 2 * ROWS;
+      const long long r0 = first + (long long)p.sl * bins + lr;
+      const bool ok0 = r0 < N, ok1 = r0 + 8 < N;
+      float m0, c0, m1, c1;
+      if (cosine) {
+        m0 = ok0 ? cl[lr] : 0.f;
+        m1 = ok1 ? cl[lr + 8] : 0.f;
+        c0 = ok0 ? cl[ROWS + lr] : -CUDART_INF_F;
+        c1 = ok1 ? cl[ROWS + lr + 8] : -CUDART_INF_F;
+      } else {
+        m0 = ok0 ? 1.f : 0.f;
+        m1 = ok1 ? 1.f : 0.f;
+        c0 = ok0 ? -cl[lr] : -CUDART_INF_F;
+        c1 = ok1 ? -cl[lr + 8] : -CUDART_INF_F;
+      }
+      const uint32_t now = (uint32_t)p.sl;
+#pragma unroll
+      for (int j = 0; j < W_NQ / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float m = h ? m1 : m0, cc = h ? c1 : c0;
+          uint32_t sp = slot[2 * j + h];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            const float sc = fmaf(sum[i], m, cc);
+            const bool up = sc > best[i];
+            best[i] = up ? sc : best[i];
+            sp = up ? (sp & ~(0xFFFFu << (16 * e))) | (now << (16 * e)) : sp;
+          }
+          slot[2 * j + h] = sp;
+        }
+      }
+    }
+    __syncwarp();
+    mbar_arrive_lane0(empty_s + 8 * p.st, lane);
+  };
+
+  // One MMA wait a chunk: step s's MMAs are committed before the wait for
+  // step s - 1's (wgmma.wait_group 1), whose sums and epilogue then run
+  // under them. Buffers alternate, even steps in 0, odd in 1.
+  if (steps > 0) {
+    Pos p{0, 0, 0, 0};  // the step in flight
+    issue(Buf<0>{}, p);
+    int s = 1;
+    for (; s + 1 < steps; s += 2) {
+      Pos p1 = next(p);
+      issue(Buf<1>{}, p1);
+      wgmma_wait<1>();
+      finish(Buf<0>{}, p);
+      p = next(p1);
+      issue(Buf<0>{}, p);
+      wgmma_wait<1>();
+      finish(Buf<1>{}, p1);
+    }
+    if (s < steps) {
+      const Pos p1 = next(p);
+      issue(Buf<1>{}, p1);
+      wgmma_wait<1>();
+      finish(Buf<0>{}, p);
+      wgmma_wait<0>();
+      finish(Buf<1>{}, p1);
+    } else {
+      wgmma_wait<0>();
+      finish(Buf<0>{}, p);
+    }
+  }
+#endif
+
+  // the planes out: a bin no row won (a column block past N) scores -inf,
+  // id -1
+  const long long col0 = (long long)grp * bins + b0;
+#pragma unroll
+  for (int j = 0; j < W_NQ / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = q0 + 8 * j + 2 * t + e;
+        if (qi >= Q) continue;
+        const int r = lr + 8 * h;
+        const long long o = (long long)qi * a.W + col0 + r;
+        const int i = 4 * j + 2 * h + e;
+        const uint32_t sv = (slot[i / 2] >> (16 * e)) & 0xFFFFu;
+        a.out_s[o] = best[i];
+        a.out_i[o] = sv == NO_SLICE ? -1 : (int)(first + (long long)sv * bins + r);
+      }
+}
+
 // ------------------------------------------------------------ launching
 
 // Lets the kernel take the device's opt-in maximum of shared memory, once
@@ -1198,6 +1609,20 @@ int launch_pipelined(const PoolArgs& a, const CUtensorMap& xmap, cudaStream_t st
   return (int)cudaGetLastError();
 }
 
+int launch_wide(const PoolArgs& a, const CUtensorMap& xmap, cudaStream_t stream) {
+  static bool ready[64];
+  const int e = allow_max_smem((const void*)exact_pool_wide_kernel, ready);
+  if (e != (int)cudaSuccess) return e;
+  const long long total = wide_plane_floats(a.Q, a.kq) / 2;
+  const long long blocks = (total + 255) / 256;
+  exact_pool_query_planes_kernel<<<(int)(blocks < 8192 ? blocks : 8192), 256, 0, stream>>>(a);
+  const cudaError_t pe = cudaGetLastError();
+  if (pe != cudaSuccess) return (int)pe;
+  const dim3 grid((a.Q + W_NQ - 1) / W_NQ, a.W / ROWS);
+  exact_pool_wide_kernel<<<grid, P_THREADS, wide_smem_bytes(), stream>>>(a, xmap);
+  return (int)cudaGetLastError();
+}
+
 // cuTensorMapEncodeTiled through the runtime (libcuda is not linked)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*,
@@ -1222,17 +1647,17 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// x as a tensor map [N rows, dl features] with row stride D, boxes of 64
-// rows x 32 features, 128-byte swizzled, zeros outside; false where TMA
-// cannot take x (a row stride or an address that is no multiple of 16
+// x as a tensor map [N rows, dl features] with row stride D, boxes of
+// `rows` rows x 32 features, 128-byte swizzled, zeros outside; false where
+// TMA cannot take x (a row stride or an address that is no multiple of 16
 // bytes) or the encode fails.
-bool x_tensor_map(CUtensorMap* map, const PoolArgs& a) {
+bool x_tensor_map(CUtensorMap* map, const PoolArgs& a, int rows) {
   if (a.D % 4 != 0 || (reinterpret_cast<uintptr_t>(a.x) & 15) != 0) return false;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)a.dl, (cuuint64_t)a.N};
   const cuuint64_t strides[1] = {(cuuint64_t)a.D * sizeof(float)};
-  const cuuint32_t box[2] = {KC, P_ROWS};
+  const cuuint32_t box[2] = {KC, (cuuint32_t)rows};
   const cuuint32_t unit[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(a.x),
                 dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -1270,7 +1695,7 @@ int dispatch(PoolArgs a, void* stream, int* form) {
     while (nqw > least && pipe_smem_bytes(nqw, a.kq) > SMEM_MAX) nqw /= 2;
     CUtensorMap xmap;
     if (pipe_smem_bytes(nqw, a.kq) <= SMEM_MAX && a.W / P_ROWS <= 65535 &&
-        x_tensor_map(&xmap, a)) {
+        x_tensor_map(&xmap, a, P_ROWS)) {
       *form = FORM_PIPELINED;
       switch (nqw) {
         case 64: return launch_pipelined<64>(a, xmap, s);
@@ -1284,6 +1709,16 @@ int dispatch(PoolArgs a, void* stream, int* form) {
     sq = true;
     nq = want < 64 ? want : 64;  // 175 KB at 64
   } else {
+    // rows over 128 features: the wide form, where x takes a tensor map
+    // and the column blocks fit the grid
+    CUtensorMap xmap;
+    if (a.kq > 128 && a.W / ROWS <= 65535 && x_tensor_map(&xmap, a, ROWS)) {
+      if (a.qp == nullptr || a.qp_floats < wide_plane_floats(a.Q, a.kq))
+        return (int)cudaErrorInvalidValue;
+      form[0] = FORM_PIPELINED;
+      form[1] = W_NQ;
+      return launch_wide(a, xmap, s);
+    }
     const int least = want < 32 ? want : 32;
     while (nq > least && smem_bytes<PACKED>(nq, a.kq, false) > SMEM_MAX) nq /= 2;
     sq = smem_bytes<PACKED>(nq, a.kq, false) > SMEM_MAX;
@@ -1325,18 +1760,23 @@ int dispatch(PoolArgs a, void* stream, int* form) {
 
 // Both launch on the caller's stream and return cudaGetLastError() (0 =
 // launched), or cudaErrorInvalidValue for 65,535 or more row slices per
-// group or a live width outside 1 .. D. The other checks are the Python
+// group, a live width outside 1 .. D, or a wide launch whose query planes'
+// scratch (qplanes, qplane_floats floats; unused by other forms) is
+// smaller than wide_plane_floats. The other checks are the Python
 // wrappers' (vectorsearch_torch/ops/exact.py). Each reports the form it
-// launched in form[0] (1 pipelined, 2 streamed, 3 resident; untouched when
-// it launched nothing); the two-plane one also reports the queries a block
-// in form[1], so its `form` points at two ints.
+// launched in form[0] (1 pipelined: B2's own mainloop or B1's wide one; 2
+// streamed, 3 resident; untouched when it launched nothing); the two-plane
+// one also reports the queries a block in form[1], so its `form` points at
+// two ints.
 extern "C" int exact_pool_launch(const float* q, const float* x,
                                  const float* aux0, const float* aux1,
                                  float* out_s, int* out_i, int Q, int N, int D,
-                                 int tile, int bins, int fold, int W, int cosine,
+                                 int d_live, int tile, int bins, int fold, int W,
+                                 int cosine, float* qplanes, long long qplane_floats,
                                  void* stream, int* form) {
   const PoolArgs a{q, x, aux0, aux1, nullptr, nullptr, out_s, out_i, Q, N, D,
-                   D, 0, tile, bins, fold, W, cosine, 0, 0.f};
+                   d_live, 0, tile, bins, fold, W, cosine, 0, 0.f, qplanes,
+                   qplane_floats};
   return dispatch<false>(a, stream, form);
 }
 
@@ -1348,6 +1788,6 @@ extern "C" int exact_pool_packed_launch(const float* q, const float* x,
                                         int fold, int W, int cosine,
                                         float slot_f, void* stream, int* form) {
   const PoolArgs a{q, x, aux0, aux1, mult, qn2, out, nullptr, Q, N, D,
-                   d_live, 0, tile, bins, fold, W, cosine, 0, slot_f};
+                   d_live, 0, tile, bins, fold, W, cosine, 0, slot_f, nullptr, 0};
   return dispatch<true>(a, stream, form);
 }

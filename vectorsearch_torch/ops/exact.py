@@ -113,7 +113,8 @@ def _packed_steps(tile: int, bins: int, fold: int) -> tuple[float, float]:
 def _bind_tc(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.exact_pool_launch.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, ctypes.POINTER(ctypes.c_int),
+        p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, ctypes.c_longlong, p,
+        ctypes.POINTER(ctypes.c_int),
     ]
     lib.exact_pool_launch.restype = ctypes.c_int
     lib.exact_pool_packed_launch.argtypes = [
@@ -126,10 +127,12 @@ def _bind_tc(lib) -> None:
 _count_lock = threading.Lock()
 
 #: Registry counter of B1's launches, by the form the kernel took
-#: (attribute ``form``): ``resident`` (the query tile's planes split once
-#: into shared memory) or ``streamed`` (each step's query features copied
-#: and split beside the rows': rows too wide for resident planes); and by
-#: the queries a block (attribute ``tile``, an int).
+#: (attribute ``form``): ``pipelined`` (rows over 128 features that x's
+#: tensor map takes: its own mainloop, a TMA ring fed with x and with the
+#: query planes split once a launch), ``resident`` (the query tile's planes
+#: split once into shared memory) or ``streamed`` (each step's query
+#: features copied and split beside the rows': wide rows TMA cannot take);
+#: and by the queries a block (attribute ``tile``, an int).
 LAUNCHES = "vectorsearch.exact_pool.launches"
 #: Registry counter of B2's launches, by the form the kernel took
 #: (attribute ``form``): ``pipelined`` (its own mainloop, resident query
@@ -138,6 +141,26 @@ LAUNCHES = "vectorsearch.exact_pool.launches"
 PACKED_LAUNCHES = "vectorsearch.exact_pool.packed.launches"
 _FORMS = {1: "pipelined", 2: "streamed", 3: "resident"}  # csrc's enum Form
 _MAX_SLICES = 65_534  # csrc/exact_pool_tc.cu: 16-bit slice ids, one kept free
+_WIDE_QUERIES = 64  # csrc's W_NQ: queries a block of B1's wide form
+
+
+def _wide_plane_floats(qn: int, d_live: int) -> int:
+    """Floats of the query planes' scratch B1's wide form takes (csrc's
+    wide_plane_floats): two planes of 64 queries x 32 features for each
+    query tile and each 32-feature chunk of the live width; 0 for rows of
+    up to 128 features, which never take that form."""
+    kq = -(-d_live // 32) * 32
+    if kq <= 128:
+        return 0
+    return -(-qn // _WIDE_QUERIES) * kq * 2 * _WIDE_QUERIES
+
+
+def _check_d_live(who: str, d_live, d: int) -> int:
+    """The live width, D by default; raises outside 1 .. D."""
+    d_live = d if d_live is None else int(d_live)
+    if not 1 <= d_live <= d:
+        raise ValueError(f"{who}: d_live={d_live} outside 1 .. {d}")
+    return d_live
 
 
 def _check_kernel_args(who, q_in, x, aux, metric, tile, bins, fold, w,
@@ -177,28 +200,39 @@ def _check_kernel_args(who, q_in, x, aux, metric, tile, bins, fold, w,
         )
 
 
-def exact_pool_cuda(q_in, x, aux, *, metric, tile, bins, fold, w):
+def exact_pool_cuda(q_in, x, aux, *, metric, tile, bins, fold, w,
+                    d_live=None):
     """Launches the CUDA pool kernel on the current stream. q_in f32[Q, D]
     (pre-doubled for L2), x f32[N, D], aux f32[1|2, N] -> (scores f32[Q, W],
-    row ids i32[Q, W]). ``exact_pool_cuda.launches`` counts the launches,
-    and the registry's ``LAUNCHES`` counts them by the form and the query
-    tile the kernel took."""
+    row ids i32[Q, W]). ``d_live`` (default D): the kernel reads features
+    0 .. d_live-1 only; the caller vouches that the others are zero in q_in
+    or in x (lane padding), so skipping them changes no bit. Rows over 128
+    live features take a scratch of split query planes (``torch.empty``,
+    3.9 MB at Q 512 x 960). ``exact_pool_cuda.launches`` counts the
+    launches, and the registry's ``LAUNCHES`` counts them by the form and
+    the query tile the kernel took."""
     qn, d = q_in.shape
     n = x.shape[0]
     cosine = metric == "COSINE"
     dev = x.device
+    d_live = _check_d_live("exact_pool_cuda", d_live, d)
     _check_kernel_args("exact_pool_cuda", q_in, x, aux, metric, tile, bins,
                        fold, w)
     lib = cuda_build.load("exact_pool_tc", _bind_tc)
     outs = torch.empty((qn, w), dtype=torch.float32, device=dev)
     outi = torch.empty((qn, w), dtype=torch.int32, device=dev)
+    # the wide form's query planes: released with the call, which the
+    # caching allocator orders after the launch on this stream
+    nplane = _wide_plane_floats(qn, d_live)
+    planes = torch.empty((nplane,), dtype=torch.float32, device=dev) if nplane else None
     launched = (ctypes.c_int * 2)()  # the form and the queries a block
     with torch.cuda.device(dev):
         rc = lib.exact_pool_launch(
             q_in.data_ptr(), x.data_ptr(), aux[0].data_ptr(),
             aux[1].data_ptr() if cosine else None,
             outs.data_ptr(), outi.data_ptr(),
-            qn, n, d, tile, bins, fold, w, int(cosine),
+            qn, n, d, d_live, tile, bins, fold, w, int(cosine),
+            planes.data_ptr() if nplane else None, nplane,
             torch.cuda.current_stream(dev).cuda_stream, launched,
         )
     if rc != 0:
@@ -214,10 +248,12 @@ def exact_pool_cuda(q_in, x, aux, *, metric, tile, bins, fold, w):
 exact_pool_cuda.launches = 0
 
 
-def exact_pool_plain(q_in, x, aux, *, metric, tile, bins, fold, w):
-    """The kernel's function in plain PyTorch (same arguments and outputs).
-    Dead bins score -inf; their id is the bin's first row (unspecified by
-    the contract, masked downstream)."""
+def exact_pool_plain(q_in, x, aux, *, metric, tile, bins, fold, w,
+                     d_live=None):
+    """The kernel's function in plain PyTorch (same arguments and outputs;
+    ``d_live`` is not needed: the columns past it are zero and add exact
+    zeros to the full product). Dead bins score -inf; their id is the bin's
+    first row (unspecified by the contract, masked downstream)."""
     cross = matmul_nt(q_in, x)  # [Q, N], full f32
     if metric == "COSINE":
         s = cross * aux[0][None, :] + aux[1][None, :]
@@ -276,11 +312,7 @@ def exact_pool_packed_cuda(q_in, x, aux, mult, qn2, *, metric, tile, bins,
             f"exact_pool_packed_cuda: tile/bins={tile // bins} row slices per "
             "tile, at most 16 (4-bit slice ids)"
         )
-    d_live = d if d_live is None else int(d_live)
-    if not 1 <= d_live <= d:
-        raise ValueError(
-            f"exact_pool_packed_cuda: d_live={d_live} outside 1 .. {d}"
-        )
+    d_live = _check_d_live("exact_pool_packed_cuda", d_live, d)
     lib = cuda_build.load("exact_pool_tc", _bind_tc)
     out = torch.empty((qn, w), dtype=torch.float32, device=dev)
     cosine = metric == "COSINE"
@@ -354,11 +386,15 @@ def pool_inputs(
     xn2: torch.Tensor | None = None,  # f32[N] precomputed squared norms
     fold: int | None = None,
     min_w: int = 16384,
+    d_live: int | None = None,
 ):
     """The kernel's arguments: (q_in, aux, geometry). Column terms are
     computed here, outside the kernel, with validity folded in (as the JAX
     wrapper does): L2 aux = ||x||^2 (+inf if invalid) with q pre-doubled;
-    cosine aux = (1/||x|| or 0 for a zero row, 0 or -inf if invalid)."""
+    cosine aux = (1/||x|| or 0 for a zero row, 0 or -inf if invalid). The
+    geometry carries ``d_live`` (default D: the features past it are zero
+    padding, which the kernels skip); the tile is chosen at the padded D,
+    as in the JAX package, since it decides which rows share a bin."""
     qn, d = q.shape
     n = x.shape[0]
     tile, bins, f, w = _stage1_params(qn, d, n, tile_n, fold, min_w)
@@ -375,7 +411,8 @@ def pool_inputs(
     else:
         aux = torch.where(valid, xn2, inf)[None, :].float().contiguous()
         q_in = (q.float() * 2.0).contiguous()  # folds the 2x into the product
-    return q_in, aux, dict(metric=metric, tile=tile, bins=bins, fold=f, w=w)
+    return q_in, aux, dict(metric=metric, tile=tile, bins=bins, fold=f, w=w,
+                           d_live=d if d_live is None else d_live)
 
 
 def exact_bin_pool(
@@ -387,12 +424,15 @@ def exact_bin_pool(
     xn2: torch.Tensor | None = None,  # f32[N] precomputed squared norms
     fold: int | None = None,
     min_w: int = 16384,
+    d_live: int | None = None,
 ):
     """Stage 1: (scores f32[Q, W], row ids i32[Q, W]) with
     W = ceil(ceil(N/tile)/fold) * bins. Invalid rows never win a bin; a bin
     with no valid row scores -inf. A CUDA tensor runs the kernel, a CPU
-    tensor its plain version."""
-    q_in, aux, geom = pool_inputs(q, x, valid, metric, tile_n, xn2, fold, min_w)
+    tensor its plain version. ``d_live``: the features past it are zero
+    (lane padding); the kernel skips them."""
+    q_in, aux, geom = pool_inputs(q, x, valid, metric, tile_n, xn2, fold,
+                                  min_w, d_live)
     fn = exact_pool_cuda if x.is_cuda else exact_pool_plain
     return fn(q_in, x, aux, **geom)
 
@@ -413,11 +453,10 @@ def packed_pool_inputs(
     factor mult = SQ/scale, ||q||^2 (zeros for cosine) and the
     dequantization step scale/SQ. ``scale`` bounds every valid value the
     kernel quantizes: L2 ||q|| + max valid ||x|| (a bound on the distance),
-    cosine ||q||; both at least 1e-30. The geometry carries ``d_live``
-    (default D: the features past it are zero padding); the tile is chosen
-    at the padded D, as in the JAX package, since it decides which rows
-    share a bin."""
-    q_in, aux, geom = pool_inputs(q, x, valid, metric, tile_n, xn2, fold, min_w)
+    cosine ||q||; both at least 1e-30. The geometry is ``pool_inputs``'
+    (``d_live`` included) with ``slot_f``."""
+    q_in, aux, geom = pool_inputs(q, x, valid, metric, tile_n, xn2, fold,
+                                  min_w, d_live)
     slot_f, sq_steps = _packed_steps(geom["tile"], geom["bins"], geom["fold"])
     qf = q.float()
     qnorm = torch.sqrt(torch.sum(qf * qf, dim=1))
@@ -430,9 +469,8 @@ def packed_pool_inputs(
         scale = torch.clamp(qnorm + torch.sqrt(mx2), min=1e-30)
         qn2 = qnorm * qnorm
     mult = (sq_steps / scale).contiguous()
-    d_live = q.shape[1] if d_live is None else d_live
     return (q_in, aux, mult, qn2.contiguous(), scale / sq_steps,
-            dict(geom, slot_f=slot_f, d_live=d_live))
+            dict(geom, slot_f=slot_f))
 
 
 def exact_bin_pool_packed(
@@ -533,8 +571,7 @@ def exact_pool_scored(
     values and their columns. Its scores carry the packing's quantization
     (a step of scale/SQ); ``stage2_halve`` reduces (score, id) pairs and so
     always takes the two-plane kernel. ``d_live``: the features past it are
-    zero (lane padding), which the packed kernel skips; the two-plane kernel
-    reads every feature."""
+    zero (lane padding), which both kernels skip."""
     if packed is None:
         packed = _packed_default(x.shape[0])
     min_w = max(16384, 4 * ef_buf)
@@ -554,7 +591,7 @@ def exact_pool_scored(
         )
     outs, outi = exact_bin_pool(
         q, x, valid, metric=metric, tile_n=tile_n, xn2=xn2, fold=fold,
-        min_w=min_w,
+        min_w=min_w, d_live=d_live,
     )
     if stage2_halve:
         outs, outi = _halve_pool(outs, outi, stage2_halve)

@@ -44,13 +44,18 @@ def nvcc() -> str:
     )
 
 
-def build(name: str) -> tuple[str, str]:
+def build(name: str, defines: tuple[str, ...] = ()) -> tuple[str, str]:
     """Compiles csrc/<name>.cu for sm_90a into _build/ (if that source's
     library is not there yet) and returns (library path, compiler output;
-    empty when the library was already built)."""
+    empty when the library was already built). ``defines``: preprocessor
+    macros of a measurement variant (``-D``), which builds a library of its
+    own."""
     src = source_path(name)
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        text = f.read()
+    if defines:
+        text += repr(sorted(defines)).encode()
+    digest = hashlib.sha256(text).hexdigest()[:16]
     lib_path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     if os.path.exists(lib_path):
         return lib_path, ""
@@ -59,7 +64,7 @@ def build(name: str) -> tuple[str, str]:
     cmd = [
         nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-        "-o", tmp, src,
+        *(f"-D{m}" for m in defines), "-o", tmp, src,
     ]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -75,14 +80,17 @@ def build(name: str) -> tuple[str, str]:
     return lib_path, proc.stdout + proc.stderr
 
 
-def load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built on first use; ``bind``
-    sets the C entry points' argument and result types once."""
+def load(name: str, bind: Callable[[ctypes.CDLL], None],
+         defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu (built with ``defines``), built
+    on first use; ``bind`` sets the C entry points' argument and result
+    types once."""
+    key = name if not defines else f"{name}{sorted(defines)}"
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            path, _ = build(name)
+            path, _ = build(name, defines)
             lib = ctypes.CDLL(path)
             bind(lib)
-            _libs[name] = lib
+            _libs[key] = lib
         return lib
