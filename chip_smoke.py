@@ -14,9 +14,9 @@ result):
    form, line width and FULL flag; B2's pipelined form one line per query
    tile and B1's wide form, a spill or other than 168 registers fails),
    and counts the warpgroup MMA (HGMMA) instructions in the SASS
-   (cuobjdump) of every instantiation of the exact pools' kernels, B1, B1's
-   wide form, B2's streamed form and B2's pipelined form: none in any of
-   them, or no instantiation of one, fails; beside them it builds the exact
+   (cuobjdump) of every instantiation of the exact pools' kernels, B1's
+   narrow and wide forms and B2's pipelined form: none in any of them, or
+   no instantiation of one, fails; beside them it builds the exact
    pool's copy-only variant (EXACT_POOL_FEED_ONLY) for phase 5;
 3. kernel vs plain on the card:
    - the exact-pool kernel (B1) at every shape a sift1m exact batch gives it
@@ -277,31 +277,29 @@ def _build_all():
 
 
 _EXACT_FORM = re.compile(
-    r"exact_pool_(?:tc_kernel(?:<\d+, \w+, (\w+), \w+>|ILi\d+ELb[01]ELb([01])E)"
+    r"exact_pool_(?:tc_kernel"
     r"|pipelined_kernel(?:<(\d+)>|ILi(\d+)E)|(wide)_kernel|(query_planes)_kernel)")
 # the forms that run on the tensor cores (every instantiation holds HGMMA)
-_EXACT_FORMS = ("B1", "B1 wide", "B2 streamed", "B2 pipelined")
+_EXACT_FORMS = ("B1 narrow", "B1 wide", "B2 pipelined")
 
 
 def _exact_form(name):
     """(form, NQW) of an exact-pool kernel from its demangled or mangled
-    name: B1 or B2's streamed form (exact_pool_tc_kernel, its PACKED flag
-    the third template argument; NQW None), B2's pipelined form
-    (exact_pool_pipelined_kernel<NQW>), B1's wide form
+    name: B1's narrow form (exact_pool_tc_kernel<NQ>; NQW None), B2's
+    pipelined form (exact_pool_pipelined_kernel<NQW>), B1's wide form
     (exact_pool_wide_kernel) or its prologue, which splits the query planes
     (exact_pool_query_planes_kernel, "B1 query planes": no MMA); None for
     any other name."""
     m = _EXACT_FORM.search(name)
     if m is None:
         return None
-    if m.group(3) or m.group(4):
-        return "B2 pipelined", int(m.group(3) or m.group(4))
-    if m.group(5):
+    if m.group(1) or m.group(2):
+        return "B2 pipelined", int(m.group(1) or m.group(2))
+    if m.group(3):
         return "B1 wide", None
-    if m.group(6):
+    if m.group(4):
         return "B1 query planes", None
-    packed = (m.group(1) or m.group(2)) in ("true", "1")
-    return ("B2 streamed" if packed else "B1"), None
+    return "B1 narrow", None
 
 
 def _pipelined_ptxas(compiler_out):
@@ -580,7 +578,7 @@ def _deep_case(name, segs, *, seed, alive_frac=0.98, qn=512):
 def _packed_forms(exact_ops, registry):
     """{form: B2 launches so far} from the port's registry counter."""
     return {f: registry.counter_value(exact_ops.PACKED_LAUNCHES, {"form": f})
-            for f in ("pipelined", "streamed")}
+            for f in ("pipelined", "wide")}
 
 
 def _form_taken(before, after):
@@ -1987,7 +1985,7 @@ def _deep10m(tvs, exact_ops, tag, launches, tables):
 
         def pool(key, packed):
             form = _exact_form(key)
-            return form is not None and (form[0] != "B1") is packed
+            return form is not None and form[0].startswith("B2") is packed
 
         top = sorted(dev, key=_device_us, reverse=True)[:8]
         _log(f"deep10m churn profile {tag}: 8 clients and the writer, "
@@ -2354,8 +2352,6 @@ def _wide_feed(exact_ops, q_in, x, aux, geom):
     chunk's two 64-query planes, 32 KB, from L2 or device memory), its
     consumers reading nothing; the prologue that splits the query planes is
     in the time. The bytes count the ring's stages alone."""
-    import ctypes
-
     import torch
 
     from vectorsearch_torch.utils import cuda_build
@@ -2364,18 +2360,20 @@ def _wide_feed(exact_ops, q_in, x, aux, geom):
     (qn, d), n, w = q_in.shape, x.shape[0], geom["w"]
     outs = torch.empty((qn, w), dtype=torch.float32, device="cuda")
     outi = torch.empty((qn, w), dtype=torch.int32, device="cuda")
-    nplane = exact_ops._wide_plane_floats(qn, geom["d_live"])
+    form, _nq, nplane = exact_ops._plan(lib, "copy-only wide form", qn, d,
+                                        geom["d_live"], w, packed=False)
+    if form != "pipelined":
+        raise AssertionError(f"copy-only wide form: form {form}")
     planes = torch.empty((nplane,), dtype=torch.float32, device="cuda")
-    form = (ctypes.c_int * 2)()
 
     def run():
         rc = lib.exact_pool_launch(
             q_in.data_ptr(), x.data_ptr(), aux[0].data_ptr(), None,
             outs.data_ptr(), outi.data_ptr(), qn, n, d, geom["d_live"],
             geom["tile"], geom["bins"], geom["fold"], w, 0, planes.data_ptr(),
-            nplane, torch.cuda.current_stream().cuda_stream, form)
-        if rc != 0 or form[0] != 1:
-            raise AssertionError(f"copy-only wide form: rc {rc}, form {form[0]}")
+            nplane, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise AssertionError(f"copy-only wide form: rc {rc}")
 
     span, bins = geom["fold"] * geom["tile"], geom["bins"]
     steps = sum(min(-(-(n - f - b0) // bins), span // bins)
@@ -2526,7 +2524,7 @@ def main() -> int:
             f"B2 pipelined / B1 wide: spills, registers other than 168 or no "
             f"instantiation: {pipe_regs}")
     # B1 and B2 run on the tensor cores: warpgroup MMA in each instantiation
-    # of both kernels (B1, B2 streamed, B2 pipelined)
+    # of their forms (B1 narrow, B1 wide, B2 pipelined)
     mmas = _warpgroup_mmas(built["exact_pool_tc"][0], "exact_pool_")
     for fn, n in sorted(mmas.items()):
         _log(f"sass {tag}: {fn}: {n} HGMMA")

@@ -67,8 +67,9 @@ def cuda():
     # Q x W of a single block: one query tile, one column block (W 128)
     (3 * 512 + 123, 512, 4, 128, 100, 1.0),
     # wide rows: a width whose rows TMA takes (the wide form), one feature
-    # more (a row stride no multiple of 16 bytes: streamed, 4-byte copies),
-    # and a published embedding width (the wide form)
+    # more (a row stride no multiple of 16 bytes: the wrapper pads it with
+    # zero columns, then the wide form), and a published embedding width
+    # (the wide form)
     (20_123, None, None, 2464, 3, 1.0),
     (20_123, None, None, 2465, 3, 1.0),
     (20_123, None, None, 3072, 100, 1.0),
@@ -90,11 +91,11 @@ def test_kernel_matches_plain(cuda, rng, metric, n, tile, fold, d, qn, scale):
     if tile == 512 and fold == 4:
         assert geom["w"] == 128
     # the form and the queries a block the kernel takes at each (D, Q) above:
-    # rows over 128 features that TMA takes the wide (pipelined) form;
-    # others resident planes while they fit in shared memory, else streamed
+    # rows over 128 live features the wide (pipelined) form, 64 queries a
+    # block; narrower rows resident planes at the power of two Q needs
     form = {(128, 1): ("resident", 8), (128, 64): ("resident", 64),
             (2464, 3): ("pipelined", 64),
-            (2465, 3): ("streamed", 8), (3072, 100): ("pipelined", 64),
+            (2465, 3): ("pipelined", 64), (3072, 100): ("pipelined", 64),
             (1024, 512): ("pipelined", 64)}.get((d, qn), ("resident", 128))
     registry = get_registry()
     counts = (registry.counter_value(te.LAUNCHES),
@@ -234,11 +235,14 @@ def test_kernel_distances_hold_float32_at_gist_rows(cuda):
     # a live width whose last 32-feature stage is part zero-filled
     (20_123, None, None, 128, 98, 40, None, "pipelined"),
     # widths that are no multiple of 32: a tensor map's zero fill, and a
-    # row stride no multiple of 16 bytes (streamed, 4-byte copies)
+    # row stride no multiple of 16 bytes (the wrapper pads it with zero
+    # columns)
     (50_123, None, None, 100, None, 100, None, "pipelined"),
-    (20_123, None, None, 99, None, 40, None, "streamed"),
-    # the streamed query tile (rows too wide for resident planes)
-    (20_123, None, None, 3072, None, 100, None, "streamed"),
+    (20_123, None, None, 99, None, 40, None, "pipelined"),
+    # rows too wide for resident planes: B1's wide form at fold 1, packed
+    (20_123, None, None, 3072, None, 100, None, "wide"),
+    # a published embedding width past the planes (768 live of 768, Q 512)
+    (50_123, None, None, 768, None, 512, None, "wide"),
     # the pipelined form at the batch sizes a client sends: one query, a
     # ragged 77, 128 and 513 (a last tile of one query), at dl 96 of 128
     (5 * 512 + 77, 512, 4, 128, 96, 1, None, "pipelined"),
@@ -272,7 +276,7 @@ def test_packed_kernel_matches_plain(cuda, rng, metric, n, tile, fold, d,
     assert geom["d_live"] == (d if d_live is None else d_live)
     registry = get_registry()
     forms = {f: registry.counter_value(te.PACKED_LAUNCHES, {"form": f})
-             for f in ("pipelined", "streamed")}
+             for f in ("pipelined", "wide")}
     before = te.exact_pool_packed_cuda.launches
     kp = te.exact_pool_packed_cuda(q_in, args[1], aux, mult, qn2, **geom)
     assert te.exact_pool_packed_cuda.launches == before + 1
@@ -313,8 +317,7 @@ def test_packed_wrapper_rejects_bad_arguments(cuda, rng):
         dict(q_in=q_in.double()), dict(mult=mult.cpu()), dict(qn2=qn2[:2]),
         dict(geom=dict(geom, w=geom["w"] + geom["bins"])),
         dict(geom=dict(geom, slot_f=geom["slot_f"] * 2)),
-        # the shared tensor-core kernel's limits: live width 1 .. D, and
-        # 16-bit slice ids
+        # the kernels' limits: live width 1 .. D, and 16-bit slice ids
         dict(geom=dict(geom, d_live=0)), dict(geom=dict(geom, d_live=17)),
         dict(geom=dict(geom, fold=2**15, w=geom["bins"],
                        slot_f=float(2**15 * (geom["tile"] // geom["bins"])))),
@@ -323,6 +326,45 @@ def test_packed_wrapper_rejects_bad_arguments(cuda, rng):
         with pytest.raises(ValueError):
             te.exact_pool_packed_cuda(a["q_in"], x, aux, a["mult"], a["qn2"],
                                       **a["geom"])
+
+
+def test_packed_wrapper_rejects_more_column_blocks_than_a_grid_holds(cuda):
+    """A pool whose column blocks pass the grid's 65,535 raises before any
+    launch: at tile 512, fold 1 and 32,769 tiles B2's pipelined form would
+    need 65,538 blocks of 64 columns, while B1's 32,769 blocks of 128 still
+    launch."""
+    n = 32_768 * 512 + 1
+    x = torch.ones((n, 4), device=cuda)
+    valid = torch.ones(n, dtype=torch.bool, device=cuda)
+    q_in, aux, mult, qn2, _step, geom = te.packed_pool_inputs(
+        x[:2], x, valid, tile_n=512, fold=1)
+    assert geom["w"] // 64 == 65_538
+    before = te.exact_pool_packed_cuda.launches
+    with pytest.raises(ValueError, match="65,535 column blocks"):
+        te.exact_pool_packed_cuda(q_in, x, aux, mult, qn2, **geom)
+    assert te.exact_pool_packed_cuda.launches == before
+    del geom["slot_f"]
+    ks, ki = te.exact_pool_cuda(q_in, x, aux, **geom)
+    torch.cuda.synchronize()
+    assert bool((ki[:, :128] >= 0).all())
+
+
+@pytest.mark.parametrize("qn,d_live,floats", [
+    (512, 128, 0), (512, 96, 0), (1, 100, 0),
+    # rows over 128 live features take the wide form's scratch: two planes
+    # of 64 queries x 32 features a query tile and a chunk
+    (512, 960, 8 * 960 * 128), (1, 129, 160 * 128), (65, 1000, 2 * 1024 * 128),
+    (513, 960, 9 * 960 * 128), (64, 960, 960 * 128),
+])
+def test_wide_form_scratch_size(cuda, qn, d_live, floats):
+    """The query planes' scratch the wrapper hands B1's wide form, as
+    csrc's exact_pool_plan sizes it (wide_plane_floats): 3.9 MB at GIST1M's
+    batch, none on rows of up to 128 live features."""
+    lib = te.cuda_build.load("exact_pool_tc", te._bind_tc)
+    d = -(-d_live // 32) * 32
+    form = "resident" if d_live <= 128 else "pipelined"
+    assert te._plan(lib, "test", qn, d, d_live, 128, packed=False)[::2] == (
+        form, floats)
 
 
 def test_index_on_the_card_matches_the_cpu(cuda, rng):

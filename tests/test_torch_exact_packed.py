@@ -540,3 +540,44 @@ def test_index_passes_its_logical_dimension_to_the_packed_route(rng, monkeypatch
     assert seen == [(128, 128, 16)]
     d = np.linalg.norm(x[None, :, :] - q[:, None, :], axis=2)
     assert (got[:, 0] == np.asarray(gids)[d.argmin(axis=1)]).all()
+
+
+@pytest.mark.parametrize("metric", ["L2", "COSINE"])
+@pytest.mark.parametrize("fold", [1, 2, 8])
+@pytest.mark.parametrize("blocked", [False, True])
+def test_packed_wide_route_equals_the_plain_pool(monkeypatch, metric, fold,
+                                                 blocked):
+    """B2's wide route (B1 at fold 1, then pack_tiles, over blocks of
+    queries), with exact_pool_plain standing in for B1's kernel, gives
+    exact_pool_packed_plain's plane bit for bit: a ragged last tile, a
+    group whose rows are all invalid (dead bins), and, blocked, a byte
+    bound that splits the 13 queries into blocks of 4, 4, 4 and 1. The
+    features are small integers, so every product is exact in f32 whatever
+    rows a block holds."""
+    rng = np.random.default_rng(100 * fold + blocked)
+    n, d, qn, tile = 17 * 512 + 77, 24, 13, 512
+    x = rng.integers(-8, 9, size=(n, d)).astype(np.float32)
+    q = rng.integers(-8, 9, size=(qn, d)).astype(np.float32)
+    x[9] = 0.0
+    valid = rng.random(n) > 0.1
+    valid[fold * tile:2 * fold * tile] = False  # the second group: dead bins
+    args = [torch.from_numpy(a) for a in (q, x, valid)]
+    q_in, aux, mult, qn2, _step, geom = te.packed_pool_inputs(
+        *args, metric=metric, tile_n=tile, fold=fold)
+    w1 = -(-n // tile) * geom["bins"]
+    calls = []
+
+    def b1(q_blk, *a, **kw):
+        calls.append((q_blk.shape[0], kw["fold"], kw["w"], kw["d_live"]))
+        return te.exact_pool_plain(q_blk, *a, **kw)
+
+    monkeypatch.setattr(te, "exact_pool_cuda", b1)
+    if blocked:
+        monkeypatch.setattr(te, "_PACK_BLOCK_BYTES", 4 * 8 * w1 + 7)
+    got = te._packed_wide_route(q_in, args[1], aux, mult, qn2, **geom)
+    want = te.exact_pool_packed_plain(q_in, args[1], aux, mult, qn2, **geom)
+    assert torch.equal(got, want)
+    assert [c[0] for c in calls] == ([4, 4, 4, 1] if blocked else [qn])
+    assert all(c[1:] == (1, w1, d) for c in calls)
+    live = torch.isfinite(want)
+    assert not live.all() and live.any()

@@ -414,15 +414,46 @@ def test_kernel_wrapper_rejects_d_live_before_loading(monkeypatch, d_live):
                            fold=1, w=128, d_live=d_live)
 
 
-@pytest.mark.parametrize("qn,d_live,floats", [
-    (512, 128, 0), (512, 96, 0), (1, 100, 0),
-    # rows over 128 live features take the wide form's scratch: two planes
-    # of 64 queries x 32 features a query tile and a chunk
-    (512, 960, 8 * 960 * 128), (1, 129, 160 * 128), (65, 1000, 2 * 1024 * 128),
-    (513, 960, 9 * 960 * 128), (64, 960, 960 * 128),
-])
-def test_wide_form_scratch_size(qn, d_live, floats):
-    """The query planes' scratch the wrapper hands B1's wide form
-    (csrc/exact_pool_tc.cu's wide_plane_floats): 3.9 MB at GIST1M's batch,
-    none on rows of up to 128 live features."""
-    assert te._wide_plane_floats(qn, d_live) == floats
+@pytest.mark.parametrize("metric", ["L2", "COSINE"])
+@pytest.mark.parametrize("d", [99, 2465])
+def test_pad_width_leaves_the_plain_pools_bit_identical(metric, d):
+    """The kernel wrappers' padding (_pad_width) gives a width that is no
+    multiple of 4 zero columns up to the next one and d_live the original
+    width: both plain pools (the two-plane and the packed) give the same
+    bits on the padded arguments. The features are small integers, so every
+    product and sum is exact in f32 and the check does not depend on the
+    order in which the CPU's matrix product sums (which changes with the
+    width at D 2,465)."""
+    rng = np.random.default_rng(d)
+    n = 3 * 512 + 77
+    x = rng.integers(-8, 9, size=(n, d)).astype(np.float32)
+    q = rng.integers(-8, 9, size=(9, d)).astype(np.float32)
+    x[5] = 0.0
+    valid = rng.random(n) > 0.1
+    args = [torch.from_numpy(a) for a in (q, x, valid)]
+    q_in, aux, mult, qn2, _step, geom = te.packed_pool_inputs(
+        *args, metric=metric, tile_n=512, fold=2)
+    pq, px, d_live = te._pad_width(q_in, args[1], None)
+    wide = -(-d // 4) * 4
+    assert (pq.shape[1], px.shape[1], d_live) == (wide, wide, d)
+    assert not pq[:, d:].any() and not px[:, d:].any()
+    two = dict(geom)
+    del two["slot_f"]
+    for got, want in (
+        (te.exact_pool_plain(pq, px, aux, **dict(two, d_live=d_live)),
+         te.exact_pool_plain(q_in, args[1], aux, **two)),
+        ((te.exact_pool_packed_plain(pq, px, aux, mult, qn2,
+                                     **dict(geom, d_live=d_live)),),
+         (te.exact_pool_packed_plain(q_in, args[1], aux, mult, qn2, **geom),)),
+    ):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    # a width that is a multiple of 4 passes through as it is, unless x
+    # starts off a 16-byte boundary: then it is copied at the same width
+    same = te._pad_width(pq, px, d_live)
+    assert same[0] is pq and same[1] is px and same[2] == d
+    off = torch.cat([torch.zeros(1), px.flatten()])[1:].view(px.shape)
+    assert off.data_ptr() % 16
+    moved = te._pad_width(pq, off, d_live)
+    assert moved[1].data_ptr() % 16 == 0 and torch.equal(moved[1], px)
+    assert moved[0].shape == pq.shape and moved[2] == d

@@ -2,14 +2,16 @@
 // of the TPU kernels vectorsearch_tpu/ops/pallas/exact.py::_pool_kernel
 // (B1, reached through exact_bin_pool; launched through exact_pool_launch
 // below) and ::_packed_pool_kernel (B2, reached through
-// exact_bin_pool_packed; launched through exact_pool_packed_launch). Three
-// mainloops serve them: exact_pool_tc_kernel (B1 on rows of up to 128
-// features and on rows TMA cannot take, and B2's streamed form through its
-// PACKED flag), exact_pool_pipelined_kernel (B2's resident form) and
-// exact_pool_wide_kernel (B1 on wider rows, after its prologue
-// exact_pool_query_planes_kernel). They share no mainloop logic, only the
-// small helpers (the TF32 split, the wgmma wrappers, the descriptors, the
-// query planes' layout, the TMA and mbarrier wrappers).
+// exact_bin_pool_packed; launched through exact_pool_packed_launch). One
+// mainloop serves each form a launch can take (exact_pool_plan picks it):
+// exact_pool_tc_kernel (B1 narrow: rows of up to 128 live features),
+// exact_pool_wide_kernel (B1 wide: wider rows, after its prologue
+// exact_pool_query_planes_kernel) and exact_pool_pipelined_kernel (B2 where
+// its resident query planes fit). B2 on rows too wide for those planes
+// takes B1's wide form at fold 1, and the wrapper packs its planes
+// (vectorsearch_torch/ops/exact.py::pack_tiles). The mainloops share no
+// logic, only the small helpers (the TF32 split, the wgmma wrappers, the
+// descriptors, the query planes' layout, the TMA and mbarrier wrappers).
 //
 // B1's function (the TPU kernel's, so the two pools compare directly): for
 // each query q and each pool column (group g, bin b), the max over the rows
@@ -28,15 +30,18 @@
 //     p = rint(v * mult[q]) * F + (j * tile/bins + a),  F = fold * tile/bins
 // with v = -sqrt(max(qn2[q] - m, 0)) for L2 (minus the distance; the sqrt
 // runs once per tile, not per element) and v = m for cosine, and the column
-// holds the max of p over the group's tiles. mult = SQ/scale with
-// SQ = 2^23/F keeps |p| < 2^24. Tiles are quantized one by one (two tiles on
-// one step resolve toward the higher slot), rint rounds half to even, a dead
-// bin reads -inf. The build uses no fast-math: the epilogue needs IEEE
-// sqrtf and rintf.
+// holds the max of p over the group's tiles. mult = steps/scale with
+// steps = 2^23/F keeps |p| < 2^24. Tiles are quantized one by one (two
+// tiles on one step resolve toward the higher slot), rint rounds half to
+// even, a dead bin reads -inf. The build uses no fast-math: the epilogue
+// needs IEEE sqrtf and rintf.
 //
-// Both read features 0 .. dl-1 of each row (dl <= D, the row stride): the
+// All read features 0 .. dl-1 of each row (dl <= D, the row stride): the
 // index lane-pads rows with zero columns (Deep10M: 96 -> 128, GIST1M: 960
 // -> 1,024), which add exact zeros to every product, so they are skipped.
+// The wrapper gives every launch a row stride that is a multiple of 16
+// bytes and x on a 16-byte boundary (it pads other widths with zero
+// columns), which 16-byte copies and TMA tensor maps need.
 //
 // What bounds it on an H100: a [Q, N] x [N, dl] product folded into a
 // per-bin reduction, so the [Q, N] score matrix never reaches device memory.
@@ -56,74 +61,52 @@
 // form would run twice the tensor rate on paper, but errs by up to ~1.1e-5 x
 // 2|q||x|, the edge of B1's tolerance. Three TF32 passes at 495 TFLOP/s put
 // B1's ceiling at ~0.64 ms for the sift1m shape, B2's at ~4.8 ms for the
-// Deep10M one. B2, and B1 on rows over 128 features, also sum each
-// 32-feature chunk's products apart and add the chunks in registers
-// (CHUNK_SUM below): the tensor cores round each MMA's sum into the
-// accumulator toward zero, so accumulated inside the MMAs over a slice the
-// error grows with the running sum and the chunk count. At GIST1M's rows
-// (960 features in 30 chunks, |q|^2 ~ 16,000) one accumulator put ~1e-4 on
-// a neighbour's distance, ~25x float32's; at 128 features (4 chunks) it
-// stays within B1's tolerance, and B1 keeps it there at every query tile,
-// so a narrow row's distance does not depend on its batch's size. Rows
-// over 128 features never take the 128-query tile, which has no registers
-// for the sums.
-// The same rounding moves B2's quantization step (up to 2-3 levels at F 8
-// over 128 features;
-// tests/test_torch_exact_packed.py emulates it).
+// Deep10M one. B2 and B1's wide form also sum each 32-feature chunk's
+// products apart (chunk sums) and add the chunks in registers: the tensor
+// cores round each MMA's sum into the accumulator toward zero, so
+// accumulated inside the MMAs over a slice the error grows with the running
+// sum and the chunk count. At GIST1M's rows (960 features in 30 chunks,
+// |q|^2 ~ 16,000) one accumulator put ~1e-4 on a neighbour's distance, ~25x
+// float32's; at 128 features (4 chunks) it stays within B1's tolerance, so
+// B1's narrow kernel keeps one accumulator at every query tile, and a
+// narrow row's distance does not depend on its batch's size. The same
+// rounding moves B2's quantization step (up to 2-3 levels at F 8 over 128
+// features; tests/test_torch_exact_packed.py emulates it).
 //
 // The mainloops put the product on the tensor cores as warpgroup MMA
 // (wgmma m64nNk8 TF32) with x in registers as the A operand (split into big
 // and small by the consumer threads) and the query tile in shared memory as
-// B, split once into two planes in wgmma's K-major layout (no swizzle: 8x4
-// core matrices of 128 contiguous bytes). A block takes 128 (B1) or 64 (B2
-// pipelined) pool columns of one group and walks the group's row slices
-// (slice sl is rows group_row0 + sl*bins + b0 .., so accumulator row i of
-// every slice belongs to bin b0 + i). The running (max, slice) of each
-// (row, query) pair lives in registers in the accumulator's own fragment
-// layout, so a slice's epilogue is elementwise: take off the column term,
-// keep score and slice on `>`. Slices ascend, so the smallest row wins a
-// tie. B1's slice indices (in the group) are 16 bits, two per register;
-// B2's (in the tile: a < tile/bins <= 16, and the packed slot is
-// j * tile/bins + a) are 4 bits, eight per register. B2's running packed
-// maxima live in shared memory (NQ/2 values of each consumer thread), read
-// and written once per tile (every tile/bins slices) by the thread that owns
-// them: its tile epilogue compresses its (max, slice), merges it (the
-// group's first tile writes) and starts the next tile afresh; the block
-// writes the plane out at its end. blockIdx.x is the query tile in both, so
-// the query tiles of one column block run side by side and x is read from
-// device memory about once.
+// B, split into two planes in wgmma's K-major layout (no swizzle: 8x4
+// core matrices of 128 contiguous bytes). A block takes 128 (B1) or 64 (B2)
+// pool columns of one group and walks the group's row slices (slice sl is
+// rows group_row0 + sl*bins + b0 .., so accumulator row i of every slice
+// belongs to bin b0 + i). The running (max, slice) of each (row, query)
+// pair lives in registers in the accumulator's own fragment layout, so a
+// slice's epilogue is elementwise: take off the column term, keep score and
+// slice on `>`. Slices ascend, so the smallest row wins a tie. B1's slice
+// indices (in the group) are 16 bits, two per register; B2's (in the tile:
+// a < tile/bins <= 16, and the packed slot is j * tile/bins + a) are 4
+// bits, eight per register, and its running packed maxima live in shared
+// memory. blockIdx.x is the query tile in all three, so the query tiles of
+// one column block run side by side and x is read from device memory about
+// once.
 //
-// B1 (exact_pool_tc_kernel): x arrives by cp.async (16-byte copies,
-// zero-filled past N and past dl; 4-byte copies when rows are not 16-byte
-// aligned) into rings of 32 features a stage (4 stages), whose padded row
-// stride (36 floats) makes every fragment load conflict-free. Each of the
-// block's two warpgroups has a ring of its own 64 rows of the 128-row slice
-// and its own named barrier, one wait per stage with the next stages'
-// copies in flight, so the two warpgroups drift apart and one's epilogue
-// and fragment splits overlap the other's MMAs. A warpgroup waits for its
-// MMAs at every chunk (wgmma.wait_group 0) before its epilogue. NQ is the
-// power of two up to 128 that Q needs; the resident planes take
-// 2 * NQ * ceil32(dl) * 4 bytes beside the rings (72 KB): dl up to 128 at NQ
-// 128, 288 at NQ 64, 576 at NQ 32. NQ halves (not below 32, or what Q needs)
-// until they fit. Wider rows that TMA cannot take (below) take the
-// streamed form (SQ): each ring stage also brings the query tile's 32
-// features of that step, which the warpgroup splits into planes of its own
-// before its MMAs (one more named barrier per step), at NQ up to 64. B1's
-// main path here is D 128 (NQ 128, resident: sift1m's kNN seal route, the
-// mesh, Deep10M's brute table). B2's streamed form runs the same loop with
-// a ring of 3 stages (its packed plane takes the fourth's room) and
-// CHUNK_SUM.
+// B1 narrow (exact_pool_tc_kernel<NQ>): x arrives by cp.async (16-byte
+// copies, zero-filled past N and past dl) into rings of 32 features a stage
+// (4 stages), whose padded row stride (36 floats) makes every fragment load
+// conflict-free. Each of the block's two warpgroups has a ring of its own
+// 64 rows of the 128-row slice and its own named barrier, one wait per
+// stage with the next stages' copies in flight, so the two warpgroups drift
+// apart and one's epilogue and fragment splits overlap the other's MMAs. A
+// warpgroup waits for its MMAs at every chunk (wgmma.wait_group 0) before
+// its epilogue. NQ is the power of two up to 128 that Q needs; the resident
+// query planes take 2 * NQ * ceil32(dl) * 4 bytes beside the rings (72 KB),
+// 128 KB at NQ 128 and dl 128. Its main path is D 128 (NQ 128: sift1m's kNN
+// seal route, the mesh, Deep10M's brute table).
 //
-// B1 wide (exact_pool_wide_kernel): rows over 128 live features (kq > 128)
-// whose x a tensor map takes (row stride and address multiples of 16
-// bytes) and whose column blocks fit the grid (65,535). What bound the
-// streamed form at GIST1M (Q 512, N 800,768, D 1,024 with 960 live: 26.9
-// ms against its 3xTF32 ceiling of 4.77 ms over the live lanes, and
-// torch.matmul's 16.9): each warpgroup split the query tile's raw features
-// into planes at every step (a named barrier more), waited for its MMAs at
-// every chunk (wgmma.wait_group 0, so the splits and chunk sums never ran
-// under them), spent its threads' instructions on cp.async addresses, and
-// multiplied the 64 zero lane-pad columns (it had no dl). This form:
+// B1 wide (exact_pool_wide_kernel): rows over 128 live features (kq > 128),
+// whose query planes the narrow kernel cannot hold resident at a useful
+// query tile:
 // - The query planes are split once a launch, by a prologue kernel
 //   (exact_pool_query_planes_kernel) into a scratch the wrapper allocates
 //   (wide_plane_floats: 3.9 MB at Q 512 x 960), chunk by chunk in wgmma's
@@ -148,18 +131,15 @@
 //   dl * (4/64 + 8/128), 49.2 GB at GIST1M's 8-segment group against 61.5
 //   GB for 64 rows x 128 queries. blockIdx.x is the query tile, so x comes
 //   from device memory about once.
-// - The feed: the copy-only variant (EXACT_POOL_FEED_ONLY: the consumers
-//   wait for each stage and hand it back) moved those 49.2 GB in 5.7-6.0
-//   ms, 8.2-8.8 TB/s from L2 on one H100; the MMAs and instructions alone
-//   (no copies) ran 5.9 ms; the kernel 6.5-7.3 ms, which asks 6.8-7.5 TB/s
-//   of the ring, 80-90% of its copy-only rate. TMA multicast of x over a
-//   cluster of two neighbouring query tiles (37 GB) ran 2x slower (13.6-14.0
-//   ms; its copy-only variant 9.1 ms), with 4 stages or 6; 6 stages without
-//   it ran as 4, 3 ran 15% slower.
-// Same arithmetic as the streamed form: 3xTF32 in the same pass order,
-// chunk sums over 32 features added in order, slices ascending on `>`; its
-// scores and ids were bit-identical to the streamed form's at GIST1M's two
-// group shapes, L2 and cosine, on the card.
+// - The feed: the kernel asks the ring 80-90% of the rate its copy-only
+//   variant (EXACT_POOL_FEED_ONLY: the consumers wait for each stage and
+//   hand it back) reaches, 8.2-8.8 TB/s from L2 on one H100. TMA multicast
+//   of x over a cluster of two neighbouring query tiles ran 2x slower; 6
+//   stages ran as 4, 3 ran 15% slower (PERF.md section 6, PR 18).
+// Its arithmetic is B2's: 3xTF32 in the same pass order, chunk sums over
+// 32 features added in order, slices ascending on `>`. So B2's planes, made
+// from this form's at fold 1 where B2's own planes do not fit, equal what
+// B2's own mainloop would compute value for value.
 // Shared memory (4 stages):
 //   ring, 4 stages x (16 KB of x + 2 x 8 KB of query planes)  131,072
 //   column terms, 4 stages x 2 x 128 x 4 B                        4,096
@@ -167,21 +147,14 @@
 //   alignment to the swizzle's 1,024-byte period                  1,024
 //   total                                                       136,256
 //
-// B2 pipelined (exact_pool_pipelined_kernel), its resident form. What bound
-// the shared mainloop at Deep10M (Q 512, N 8,000,512, dl 96: 11.1 ms
-// against its 4.77 ms 3xTF32 ceiling): its 128-query tile needed a
-// 64-register chunk-sum plane beside the running maxima, so its MMAs ran
-// as two halves of 64 queries, each ended by wgmma.wait_group 0, and the
-// fragment splits, the chunk sums and the epilogues never overlapped the
-// warpgroup's own MMAs; its 3-stage cp.async ring spent the consumer
-// threads' instructions on addresses and copies. This form:
+// B2 pipelined (exact_pool_pipelined_kernel):
 // - One MMA wait a chunk. Each consumer warpgroup takes 64 rows x NQW (up
 //   to 64) queries: one accumulator of NQW/2 registers a chunk, so two
 //   accumulators and two sets of x fragments fit beside the chunk sums and
 //   the running maxima (240 registers a consumer thread through setmaxnreg;
 //   the producer warpgroup keeps 24). Chunk c+1's fragments are split and
 //   its 12 MMAs committed before the warpgroup waits for chunk c's
-//   (wgmma.wait_group 1); chunk c's CHUNK_SUM add, the slice epilogue and
+//   (wgmma.wait_group 1); chunk c's chunk-sum add, the slice epilogue and
 //   the tile epilogue then run under chunk c+1's MMAs.
 // - A ring of 4 stages filled by TMA. Thread 0 of the producer warpgroup
 //   issues a 2-D tensor copy a stage (64 rows x 32 features of x, box
@@ -225,10 +198,8 @@
 // warpgroups (one ring, not one each) and from the 64-query accumulator
 // tile (the packed plane halves to 32 KB). Up to kq 128 fits at NQW 64,
 // 320 at 32, 704 at 16; NQW halves (not below 16, or what Q needs) until
-// the planes fit. The streamed form keeps the shared mainloop for the rest:
-// rows too wide for resident planes, rows whose stride is no multiple of
-// 16 bytes or x not 16-byte aligned (a tensor map needs both), and more
-// than 65,535 column blocks.
+// the planes fit. Wider rows (768- to 1,536-feature embeddings at Q 512)
+// take B1's wide form at fold 1, packed by the wrapper.
 
 #include <cuda.h>  // the tensor map's types (libcuda is not linked)
 #include <cuda_runtime.h>
@@ -288,8 +259,9 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
                :: "r"(dst), "l"(src), "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
-                                          bool ok) {
+// One float into shared memory: src's where ok, else zero
+__device__ __forceinline__ void cp_async_f32(uint32_t dst, const float* src,
+                                             bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
 }
@@ -441,39 +413,28 @@ struct PoolArgs {
   const float* x;     // [N, D]
   const float* aux0;  // [N]
   const float* aux1;  // [N] (COSINE only)
-  const float* mult;  // [Q] SQ / scale (B2 only)
+  const float* mult;  // [Q] steps / scale (B2 only)
   const float* qn2;   // [Q] ||q||^2 (B2, L2 only)
   float* out_s;       // [Q, W] B1's scores, or B2's packed plane
   int* out_i;         // [Q, W] B1's row ids
-  int Q, N, D, dl, kq, tile, bins, fold, W, cosine, vec;
+  int Q, N, D, dl, kq, tile, bins, fold, W, cosine;
   float slot_f;       // B2's F
   float* qp;          // B1 wide: the query planes' scratch (wide_plane_floats)
   long long qp_floats;
 };
 
-// Ring depth: B2 gives a stage up to make room for its packed plane.
-template <bool PACKED>
-__host__ __device__ constexpr int ring_stages() { return PACKED ? 3 : STAGES; }
-
-// Bytes of shared memory: the query planes, the two warpgroups' rings and
-// B2's packed plane (NQ/2 values of each of the block's threads).
-template <bool PACKED>
-size_t smem_bytes(int nq, int kq, bool sq) {
-  const size_t planes = sq ? (size_t)4 * nq * KC : (size_t)2 * nq * kq;
-  const size_t rings = (size_t)2 * ring_stages<PACKED>() * (WG_ROWS + (sq ? nq : 0)) * XS;
-  return sizeof(float) * (planes + rings + (PACKED ? (size_t)nq / 2 * THREADS : 0));
+// Bytes of shared memory of the narrow kernel: the query planes and the two
+// warpgroups' rings.
+size_t smem_bytes(int nq, int kq) {
+  return sizeof(float) * ((size_t)2 * nq * kq + (size_t)2 * STAGES * WG_ROWS * XS);
 }
 
-// Shared memory: resident (SQ false): the two planes [NQ x kq], then each
-// warpgroup's ring of NST x [64 x XS]. Streamed: each warpgroup's two
-// planes [NQ x KC], then its ring of NST x ([64 x XS] of x, [NQ x XS] of
-// the query tile's raw features). Then B2's packed plane. CHUNK_SUM: see
-// the winning slices below.
-template <int NQ, bool SQ, bool PACKED, bool CHUNK_SUM>
+// Shared memory: the two query planes [NQ x kq], then each warpgroup's ring
+// of STAGES x [64 x XS].
+template <int NQ>
 __global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(const PoolArgs a) {
   extern __shared__ __align__(128) float smem[];
-  constexpr int NST = ring_stages<PACKED>();
-  constexpr int STAGE = (WG_ROWS + (SQ ? NQ : 0)) * XS;  // floats per stage
+  constexpr int STAGE = WG_ROWS * XS;  // floats per stage
   const float* __restrict__ q = a.q;
   const float* __restrict__ x = a.x;
   const int Q = a.Q, N = a.N, D = a.D, dl = a.dl, kq = a.kq, bins = a.bins;
@@ -482,12 +443,9 @@ __global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(const PoolArg
   const int wg = tid >> 7;
   const int me = tid & (WG_THREADS - 1);  // index in the warpgroup
   const int row0 = wg * WG_ROWS;          // the warpgroup's first slice row
-  const int kp = SQ ? KC : kq;            // features per query plane
-  float* qb = smem + (SQ ? wg * 2 * NQ * KC : 0);  // big halves of the queries
-  float* qs = qb + NQ * kp;                        // their small halves
-  float* ring = smem + (SQ ? 4 * NQ * KC : 2 * NQ * kq) + wg * NST * STAGE;
-  // B2's packed plane: element i of thread tid at pk[i * THREADS + tid]
-  float* pk = smem + (SQ ? 4 * NQ * KC : 2 * NQ * kq) + 2 * NST * STAGE;
+  float* qb = smem;                       // big halves of the queries
+  float* qs = qb + NQ * kq;               // their small halves
+  float* ring = smem + 2 * NQ * kq + wg * STAGES * STAGE;
   const int g = (tid & 31) >> 2, t = tid & 3;
   const int lr0 = (tid >> 5) * 16 + g;  // this thread's rows: lr0, lr0 + 8
   const int q0 = blockIdx.x * NQ;
@@ -495,8 +453,7 @@ __global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(const PoolArg
   const int grp = blockIdx.y / col_blocks;
   const int b0 = (blockIdx.y % col_blocks) * ROWS;
   const long long first = (long long)grp * a.fold * a.tile + b0;
-  const int per = a.tile / bins;  // row slices per tile
-  const int slices = a.fold * per;
+  const int slices = a.fold * (a.tile / bins);
   // slices holding rows < N (later ones lie further past N)
   const int nsl = first >= N ? 0
       : (int)(((N - first + bins - 1) / bins) < slices
@@ -510,107 +467,55 @@ __global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(const PoolArg
     const int sl = s / nch;
     const long long base = first + (long long)sl * bins + row0;
     const int k0 = (s - sl * nch) * KC;
-    float* st = ring + (s % NST) * STAGE;
-    if (a.vec) {
-      for (int e = me; e < WG_ROWS * KC / 4; e += WG_THREADS) {
-        const int row = e >> 3, kk = (e & 7) * 4;
-        const long long r = base + row;
-        const int left = dl - k0 - kk;  // features of this copy below dl
-        const bool ok = r < N && left > 0;
-        cp_async16(smem_addr(st + row * XS + kk), ok ? x + r * D + k0 + kk : x,
-                   ok ? (left < 4 ? 4 * left : 16) : 0);
-      }
-    } else {
-      for (int e = me; e < WG_ROWS * KC; e += WG_THREADS) {
-        const int row = e >> 5, kk = e & 31;
-        const long long r = base + row;
-        const bool ok = r < N && k0 + kk < dl;
-        cp_async4(smem_addr(st + row * XS + kk), ok ? x + r * D + k0 + kk : x, ok);
-      }
-    }
-    if (SQ) {  // the query tile's features k0 .. k0 + 31 (zero past Q and dl)
-      float* sq = st + WG_ROWS * XS;
-      if (a.vec) {
-        for (int e = me; e < NQ * KC / 4; e += WG_THREADS) {
-          const int n = e >> 3, kk = (e & 7) * 4, qi = q0 + n;
-          const int left = dl - k0 - kk;
-          const bool ok = qi < Q && left > 0;
-          cp_async16(smem_addr(sq + n * XS + kk),
-                     ok ? q + (long long)qi * D + k0 + kk : q,
-                     ok ? (left < 4 ? 4 * left : 16) : 0);
-        }
-      } else {
-        for (int e = me; e < NQ * KC; e += WG_THREADS) {
-          const int n = e >> 5, kk = e & 31, qi = q0 + n;
-          const bool ok = qi < Q && k0 + kk < dl;
-          cp_async4(smem_addr(sq + n * XS + kk),
-                    ok ? q + (long long)qi * D + k0 + kk : q, ok);
-        }
-      }
+    float* st = ring + (s % STAGES) * STAGE;
+    for (int e = me; e < WG_ROWS * KC / 4; e += WG_THREADS) {
+      const int row = e >> 3, kk = (e & 7) * 4;
+      const long long r = base + row;
+      const int left = dl - k0 - kk;  // features of this copy below dl
+      const bool ok = r < N && left > 0;
+      cp_async16(smem_addr(st + row * XS + kk), ok ? x + r * D + k0 + kk : x,
+                 ok ? (left < 4 ? 4 * left : 16) : 0);
     }
   };
 #pragma unroll
-  for (int s = 0; s < NST - 1; ++s) {
+  for (int s = 0; s < STAGES - 1; ++s) {
     if (s < steps) load_stage(s);
     cp_async_commit();
   }
 
-  // resident: the query tile, split once into the two planes (zero past Q
-  // and dl)
-  if (!SQ) {
-    for (int o = tid; o < NQ * kq; o += THREADS) {
-      int n, k;
-      plane_pos(o, kq, n, k);
-      const int qi = q0 + n;
-      const float v = (qi < Q && k < dl) ? q[(long long)qi * D + k] : 0.f;
-      uint32_t big, small;
-      split_tf32(v, big, small);
-      qb[o] = __uint_as_float(big);
-      qs[o] = __uint_as_float(small);
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
+  // the query tile, split once into the two planes (zero past Q and dl)
+  for (int o = tid; o < NQ * kq; o += THREADS) {
+    int n, k;
+    plane_pos(o, kq, n, k);
+    const int qi = q0 + n;
+    const float v = (qi < Q && k < dl) ? q[(long long)qi * D + k] : 0.f;
+    uint32_t big, small;
+    split_tf32(v, big, small);
+    qb[o] = __uint_as_float(big);
+    qs[o] = __uint_as_float(small);
   }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
 
-  // The winning slices: B1 keeps each one's index in the group, 16 bits,
-  // two per register; B2 its index in the tile (below 16), 4 bits, eight
-  // per register (a dead bin's stays unread: its packed value is -inf).
-  constexpr int SB = PACKED ? 4 : 16;  // bits per slice index
-  constexpr int SPR = 32 / SB;         // slice indices per register
-  constexpr int NSLOT = (NQ / 2 + SPR - 1) / SPR;
-  constexpr uint32_t SMASK = (1u << SB) - 1;
-  // CHUNK_SUM (B2, and B1 on rows over 128 features; dispatch picks it):
-  // sum each 32-feature chunk's products apart (the chunk's first MMA
-  // overwrites the accumulator) and add the chunks in registers: the tensor
-  // cores round each MMA's sum into the accumulator toward zero, so
-  // accumulated inside the MMAs over a slice the error grows with the
-  // running sum and the chunks, past B2's quantization step (up to 2-3
-  // levels at F 8 over 128 features) and past float32's class on wide rows
-  // (tests/test_torch_exact_packed.py and tests/test_torch_wide_rows.py
-  // emulate both). At 128 queries a tile that second plane only fits beside
-  // the others if the MMA runs as two halves of 64 queries in turn, through
-  // one 32-register accumulator (HALVES).
-  static_assert(PACKED ? CHUNK_SUM : NQ <= 64 || !CHUNK_SUM,
-                "B2 always sums the chunks; B1's 128-query tile never does");
-  constexpr int HALVES = PACKED && NQ == 128 ? 2 : 1;
-  constexpr int NM = NQ / HALVES;  // queries per MMA
-  float acc[NM / 2], best[NQ / 2], sum[NQ / 2];
-  uint32_t slot[NSLOT];
+  // The winning slices: each one's index in the group, 16 bits, two per
+  // register.
+  float acc[NQ / 2], best[NQ / 2];
+  uint32_t slot[NQ / 4];
 #pragma unroll
-  for (int i = 0; i < NM / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NQ / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < NQ / 2; ++i) best[i] = -CUDART_INF_F;
 #pragma unroll
-  for (int i = 0; i < NSLOT; ++i) slot[i] = 0xFFFFFFFFu;
+  for (int i = 0; i < NQ / 4; ++i) slot[i] = 0xFFFFFFFFu;
   float ca0 = 0.f, cb0 = 0.f, ca1 = 0.f, cb1 = 0.f;  // rows lr0, lr0 + 8
   const uint32_t pb = smem_addr(qb), ps = smem_addr(qs);
-  const uint32_t sbo = (uint32_t)kp * 32;
+  const uint32_t sbo = (uint32_t)kq * 32;
 
   for (int s = 0; s < steps; ++s) {
-    cp_async_wait<NST - 2>();
+    cp_async_wait<STAGES - 2>();
     // stage s landed; stage s - 1 is free for reuse
     asm volatile("bar.sync %0, %1;\n" :: "r"(1 + wg), "n"(WG_THREADS) : "memory");
-    if (s + NST - 1 < steps) load_stage(s + NST - 1);
+    if (s + STAGES - 1 < steps) load_stage(s + STAGES - 1);
     cp_async_commit();
 
     const int sl = s / nch, c = s - sl * nch;
@@ -622,25 +527,8 @@ __global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(const PoolArg
       cb1 = (cosine && r1 < N) ? a.aux1[r1] : 0.f;
     }
 
-    if (SQ) {
-      // streamed: this step's query features into the warpgroup's planes
-      // (its MMAs of the last step are complete: each warp waited for them
-      // before the barrier above)
-      const float* sq = ring + (s % NST) * STAGE + WG_ROWS * XS;
-      for (int o = me; o < NQ * KC; o += WG_THREADS) {
-        int n, k;
-        plane_pos(o, KC, n, k);
-        uint32_t big, small;
-        split_tf32(sq[n * XS + k], big, small);
-        qb[o] = __uint_as_float(big);
-        qs[o] = __uint_as_float(small);
-      }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      asm volatile("bar.sync %0, %1;\n" :: "r"(1 + wg), "n"(WG_THREADS) : "memory");
-    }
-
     // A fragments of x (rows lr0, lr0 + 8; features t, t + 4 of each k8)
-    const float* st = ring + (s % NST) * STAGE + (lr0 - row0) * XS + t;
+    const float* st = ring + (s % STAGES) * STAGE + (lr0 - row0) * XS + t;
     uint32_t ab[4][4], as[4][4];
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
@@ -652,45 +540,23 @@ __global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(const PoolArg
     }
 
 #pragma unroll
-    for (int hf = 0; hf < HALVES; ++hf) {
+    for (int i = 0; i < NQ / 2; ++i) reg_fence(acc[i]);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    // the tile's queries at this step's 8 features ks
+    auto desc = [&](uint32_t plane, int ks) {
+      return smem_desc(plane + (uint32_t)(c * 4 + ks) * 256, 128, sbo);
+    };
 #pragma unroll
-      for (int i = 0; i < NM / 2; ++i) reg_fence(acc[i]);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-      // the half's queries (NM / 8 octets) at this step's 8 features ks
-      auto desc = [&](uint32_t plane, int ks) {
-        return smem_desc(plane + (uint32_t)((SQ ? 0 : c * 4) + ks) * 256 +
-                             (uint32_t)(hf * NM / 8) * sbo, 128, sbo);
-      };
-      if constexpr (CHUNK_SUM) {
-        // a chunk's first product overwrites the accumulator; the small
-        // terms go first, so the running sum is small while they are added
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks) Wgmma<NM>::run(acc, as[ks], desc(pb, ks), ks != 0);
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks) Wgmma<NM>::run(acc, ab[ks], desc(ps, ks), 1);
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks) Wgmma<NM>::run(acc, ab[ks], desc(pb, ks), 1);
-      } else {
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-          // a slice's first product overwrites the accumulator
-          Wgmma<NM>::run(acc, as[ks], desc(pb, ks), (c | ks) != 0);
-          Wgmma<NM>::run(acc, ab[ks], desc(ps, ks), 1);
-          Wgmma<NM>::run(acc, ab[ks], desc(pb, ks), 1);
-        }
-      }
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-      for (int i = 0; i < NM / 2; ++i) reg_fence(acc[i]);
-      if (CHUNK_SUM) {
-#pragma unroll
-        for (int i = 0; i < NM / 2; ++i) {
-          const int k = hf * NM / 2 + i;
-          sum[k] = (c == 0 ? 0.f : sum[k]) + acc[i];
-        }
-      }
+    for (int ks = 0; ks < 4; ++ks) {
+      // a slice's first product overwrites the accumulator
+      Wgmma<NQ>::run(acc, as[ks], desc(pb, ks), (c | ks) != 0);
+      Wgmma<NQ>::run(acc, ab[ks], desc(ps, ks), 1);
+      Wgmma<NQ>::run(acc, ab[ks], desc(pb, ks), 1);
     }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < NQ / 2; ++i) reg_fence(acc[i]);
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
@@ -700,11 +566,9 @@ __global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(const PoolArg
       }
 
     if (c == nch - 1) {
-      // epilogue in the accumulator's layout: acc[4j + 2h + e] (B2:
-      // sum[..]) is row lr0 + 8h, query q0 + 8j + 2t + e
+      // epilogue in the accumulator's layout: acc[4j + 2h + e] is row
+      // lr0 + 8h, query q0 + 8j + 2t + e
       const bool ok0 = r0 < N, ok1 = r1 < N;
-      const int in_tile = sl % per;
-      const uint32_t now = PACKED ? (uint32_t)in_tile : (uint32_t)sl;
 #pragma unroll
       for (int j = 0; j < NQ / 8; ++j) {
 #pragma unroll
@@ -712,90 +576,39 @@ __global__ void __launch_bounds__(THREADS, 1) exact_pool_tc_kernel(const PoolArg
           const bool ok = h ? ok1 : ok0;
           const float ca = h ? ca1 : ca0, cb = h ? cb1 : cb0;
           // both elements' slice indices share a register; the update is a
-          // branch, as in B1's kernel before B2 joined it (on the card both
-          // pools ran faster with it than with selects)
-          uint32_t sp = slot[(4 * j + 2 * h) / SPR];
+          // branch (on the card it ran faster than selects)
+          uint32_t sp = slot[2 * j + h];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int i = 4 * j + 2 * h + e;
-            const int sh = (i % SPR) * SB;
-            float dot;
-            if constexpr (CHUNK_SUM) dot = sum[i];
-            else dot = acc[i];
-            const float sc = cosine ? dot * ca + cb : dot - ca;
+            const int sh = 16 * e;
+            const float sc = cosine ? acc[i] * ca + cb : acc[i] - ca;
             if (ok && sc > best[i]) {
               best[i] = sc;
-              sp = (sp & ~(SMASK << sh)) | (now << sh);
+              sp = (sp & ~(0xFFFFu << sh)) | ((uint32_t)sl << sh);
             }
           }
-          slot[(4 * j + 2 * h) / SPR] = sp;
+          slot[2 * j + h] = sp;
         }
-      }
-      if (PACKED && (in_tile == per - 1 || sl + 1 == nsl)) {
-        // B2: the tile ends here. Compress each (max, slice) once, merge it
-        // into the output (the group's first tile writes), start afresh.
-        const bool first_tile = sl < per;
-        const int tile0 = sl - in_tile;  // the tile's first slice
-#pragma unroll
-        for (int j = 0; j < NQ / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int qi = q0 + 8 * j + 2 * t + e;
-            const bool live = qi < Q;
-            const float m = live ? __ldg(a.mult + qi) : 0.f;
-            const float n2 = (live && !cosine) ? __ldg(a.qn2 + qi) : 0.f;
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int i = 4 * j + 2 * h + e;
-              const float b = best[i];
-              const float v = cosine ? b : -sqrtf(fmaxf(n2 - b, 0.f));
-              const int sv = tile0 + (int)((slot[i / SPR] >> ((i % SPR) * SB)) & SMASK);
-              const float p = rintf(v * m) * a.slot_f + (float)sv;
-              if (live) {
-                float* o = pk + i * THREADS + tid;
-                const float old = first_tile ? -CUDART_INF_F : *o;
-                *o = p > old ? p : old;  // a NaN never wins
-              }
-              best[i] = -CUDART_INF_F;
-            }
-          }
       }
     }
   }
 
-  if constexpr (PACKED) {
-    // the packed plane out of shared memory; a column block past N (no
-    // tile) has every bin dead
 #pragma unroll
-    for (int j = 0; j < NQ / 8; ++j)
+  for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int qi = q0 + 8 * j + 2 * t + e;
         if (qi >= Q) continue;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = 4 * j + 2 * h + e;
-          a.out_s[(long long)qi * a.W + col0 + lr0 + 8 * h] =
-              nsl == 0 ? -CUDART_INF_F : pk[i * THREADS + tid];
-        }
+        const int lr = lr0 + 8 * h;
+        const long long o = (long long)qi * a.W + col0 + lr;
+        const int i = 4 * j + 2 * h + e;
+        const uint32_t sv = (slot[i / 2] >> (16 * e)) & 0xFFFFu;
+        a.out_s[o] = best[i];
+        a.out_i[o] = sv == NO_SLICE ? -1 : (int)(first + (long long)sv * bins + lr);
       }
-  } else {
-#pragma unroll
-    for (int j = 0; j < NQ / 8; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int qi = q0 + 8 * j + 2 * t + e;
-          if (qi >= Q) continue;
-          const int lr = lr0 + 8 * h;
-          const long long o = (long long)qi * a.W + col0 + lr;
-          const int i = 4 * j + 2 * h + e;
-          const uint32_t sv = (slot[i / SPR] >> ((i % SPR) * SB)) & SMASK;
-          a.out_s[o] = best[i];
-          a.out_i[o] = sv == NO_SLICE ? -1 : (int)(first + (long long)sv * bins + lr);
-        }
-  }
 }
 
 // ------------------------------------------------------- B2 pipelined
@@ -940,9 +753,9 @@ __global__ void __launch_bounds__(P_THREADS, 1)
         for (int k = 0; k < P_ROWS; k += 32) {
           const int r = row + k + tid;
           const bool ok = r < N;
-          cp_async4(dst + 4 * (k + tid), ok ? a.aux0 + r : a.aux0, ok);
+          cp_async_f32(dst + 4 * (k + tid), ok ? a.aux0 + r : a.aux0, ok);
           if (cosine)
-            cp_async4(dst + 4 * (P_ROWS + k + tid), ok ? a.aux1 + r : a.aux1, ok);
+            cp_async_f32(dst + 4 * (P_ROWS + k + tid), ok ? a.aux1 + r : a.aux1, ok);
         }
         asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
                      :: "r"(full) : "memory");
@@ -1018,7 +831,7 @@ __global__ void __launch_bounds__(P_THREADS, 1)
   // the warp's fragments (rows lr0, lr0 + 8; features t, t + 4 of each k8;
   // unit u of row r sits at u ^ (r & 7), and r & 7 is g for both rows),
   // commit the chunk's 12 MMAs (small terms first: the chunk's first
-  // product overwrites the accumulator, CHUNK_SUM). The stage goes back to
+  // product overwrites the accumulator: chunk sums). The stage goes back to
   // the producer in finish, after its column terms are read.
   auto issue = [&](auto buf, int s, int c) {
     constexpr int B = decltype(buf)::value;
@@ -1336,9 +1149,9 @@ __global__ void __launch_bounds__(P_THREADS, 1)
           for (int k = 0; k < ROWS; k += 32) {
             const int r = row + k + tid;
             const bool ok = r < N;
-            cp_async4(dst + 4 * (k + tid), ok ? a.aux0 + r : a.aux0, ok);
+            cp_async_f32(dst + 4 * (k + tid), ok ? a.aux0 + r : a.aux0, ok);
             if (cosine)
-              cp_async4(dst + 4 * (ROWS + k + tid), ok ? a.aux1 + r : a.aux1, ok);
+              cp_async_f32(dst + 4 * (ROWS + k + tid), ok ? a.aux1 + r : a.aux1, ok);
           }
         }
         asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
@@ -1586,15 +1399,13 @@ int allow_max_smem(const void* kernel, bool* ready) {
   return (int)cudaSuccess;
 }
 
-template <int NQ, bool SQ, bool PACKED, bool CHUNK_SUM>
+template <int NQ>
 int launch(const PoolArgs& a, cudaStream_t stream) {
   static bool ready[64];
-  const int e = allow_max_smem(
-      (const void*)exact_pool_tc_kernel<NQ, SQ, PACKED, CHUNK_SUM>, ready);
+  const int e = allow_max_smem((const void*)exact_pool_tc_kernel<NQ>, ready);
   if (e != (int)cudaSuccess) return e;
   const dim3 grid((a.Q + NQ - 1) / NQ, a.W / ROWS);
-  const size_t bytes = smem_bytes<PACKED>(NQ, a.kq, SQ);
-  exact_pool_tc_kernel<NQ, SQ, PACKED, CHUNK_SUM><<<grid, THREADS, bytes, stream>>>(a);
+  exact_pool_tc_kernel<NQ><<<grid, THREADS, smem_bytes(NQ, a.kq), stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1649,10 +1460,9 @@ EncodeTiled encode_tiled() {
 
 // x as a tensor map [N rows, dl features] with row stride D, boxes of
 // `rows` rows x 32 features, 128-byte swizzled, zeros outside; false where
-// TMA cannot take x (a row stride or an address that is no multiple of 16
-// bytes) or the encode fails.
+// the encode fails (dispatch has checked that the row stride and x's
+// address are multiples of 16 bytes, as TMA needs).
 bool x_tensor_map(CUtensorMap* map, const PoolArgs& a, int rows) {
-  if (a.D % 4 != 0 || (reinterpret_cast<uintptr_t>(a.x) & 15) != 0) return false;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)a.dl, (cuuint64_t)a.N};
@@ -1665,119 +1475,117 @@ bool x_tensor_map(CUtensorMap* map, const PoolArgs& a, int rows) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The form a launch took, reported through the entry points' `form`: B2
-// takes the pipelined or the streamed form, B1 the resident or the
-// streamed one
-enum Form { FORM_PIPELINED = 1, FORM_STREAMED = 2, FORM_RESIDENT = 3 };
+// The form of a launch (exact_pool_plan's result): B1's narrow kernel
+// (resident query planes) or its wide form, B2's pipelined form, or B2
+// through B1's wide form at fold 1, which the wrapper runs and packs.
+enum Form { FORM_NONE = 0, FORM_PIPELINED = 1, FORM_WIDE = 2, FORM_RESIDENT = 3 };
 
-// Picks the form and the query tile for the live width and launches. B1:
-// resident planes where they fit at 32 queries or more, else streamed; it
-// reports the form in form[0] and the queries a block in form[1]. B2: the
-// pipelined form where its planes fit at 16 queries a warpgroup or more
-// and x takes a tensor map, else the shared kernel's streamed form; it
-// reports the form in form[0].
-template <bool PACKED>
-int dispatch(PoolArgs a, void* stream, int* form) {
-  if (a.Q <= 0 || a.W <= 0) return (int)cudaSuccess;
-  if (a.dl < 1 || a.dl > a.D) return (int)cudaErrorInvalidValue;
-  if ((long long)a.fold * (a.tile / a.bins) >= NO_SLICE ||
-      (PACKED && a.tile / a.bins > 16))
-    return (int)cudaErrorInvalidValue;
-  a.kq = (a.dl + KC - 1) / KC * KC;
+struct Plan {
+  int form;           // Form
+  int nq;             // queries a block (0 for FORM_WIDE: B1's launch says)
+  long long scratch;  // floats of the query planes' scratch (B1 wide)
+};
+
+// The form a launch takes at Q queries, row stride D, dl live features and
+// W pool columns. B1: rows of up to 128 live features the narrow kernel at
+// the power of two up to 128 that Q needs, wider rows the wide form. B2:
+// its pipelined form where its planes fit at 16 queries a warpgroup or
+// more, else FORM_WIDE. FORM_NONE where no form launches: a row stride that
+// is no multiple of 4 floats, dl outside 1 .. D, or more column blocks than
+// the grid's 65,535.
+Plan plan(int Q, int D, int dl, int W, bool packed) {
+  const Plan none{FORM_NONE, 0, 0};
+  if (D % 4 != 0 || dl < 1 || dl > D) return none;
+  const int kq = (dl + KC - 1) / KC * KC;
   int want = 8;
-  while (want < 128 && want < a.Q) want *= 2;
-  auto s = (cudaStream_t)stream;
-  int nq = want;
-  bool sq;
-  if constexpr (PACKED) {
+  while (want < 128 && want < Q) want *= 2;
+  Plan p;
+  int rows = ROWS;  // pool columns a block
+  if (packed) {
     int nqw = want / 2 < 8 ? 8 : want / 2;
     const int least = nqw < 16 ? nqw : 16;
-    while (nqw > least && pipe_smem_bytes(nqw, a.kq) > SMEM_MAX) nqw /= 2;
-    CUtensorMap xmap;
-    if (pipe_smem_bytes(nqw, a.kq) <= SMEM_MAX && a.W / P_ROWS <= 65535 &&
-        x_tensor_map(&xmap, a, P_ROWS)) {
-      *form = FORM_PIPELINED;
-      switch (nqw) {
-        case 64: return launch_pipelined<64>(a, xmap, s);
-        case 32: return launch_pipelined<32>(a, xmap, s);
-        case 16: return launch_pipelined<16>(a, xmap, s);
-        case 8: return launch_pipelined<8>(a, xmap, s);
-      }
-      return (int)cudaErrorInvalidValue;
-    }
-    *form = FORM_STREAMED;
-    sq = true;
-    nq = want < 64 ? want : 64;  // 175 KB at 64
+    while (nqw > least && pipe_smem_bytes(nqw, kq) > SMEM_MAX) nqw /= 2;
+    if (pipe_smem_bytes(nqw, kq) > SMEM_MAX) return {FORM_WIDE, 0, 0};
+    p = {FORM_PIPELINED, 2 * nqw, 0};
+    rows = P_ROWS;
+  } else if (kq <= 128) {
+    p = {FORM_RESIDENT, want, 0};
   } else {
-    // rows over 128 features: the wide form, where x takes a tensor map
-    // and the column blocks fit the grid
-    CUtensorMap xmap;
-    if (a.kq > 128 && a.W / ROWS <= 65535 && x_tensor_map(&xmap, a, ROWS)) {
-      if (a.qp == nullptr || a.qp_floats < wide_plane_floats(a.Q, a.kq))
-        return (int)cudaErrorInvalidValue;
-      form[0] = FORM_PIPELINED;
-      form[1] = W_NQ;
-      return launch_wide(a, xmap, s);
-    }
-    const int least = want < 32 ? want : 32;
-    while (nq > least && smem_bytes<PACKED>(nq, a.kq, false) > SMEM_MAX) nq /= 2;
-    sq = smem_bytes<PACKED>(nq, a.kq, false) > SMEM_MAX;
-    if (sq) nq = want < 64 ? want : 64;  // 180 KB at 64
-    form[0] = sq ? FORM_STREAMED : FORM_RESIDENT;
-    form[1] = nq;
+    p = {FORM_PIPELINED, W_NQ, wide_plane_floats(Q, kq)};
   }
-  a.vec = a.D % 4 == 0 && (reinterpret_cast<uintptr_t>(a.x) & 15) == 0 &&
-          (!sq || (reinterpret_cast<uintptr_t>(a.q) & 15) == 0);
-  // chunk sums: B2 always, B1 on rows over 128 features (never at 128
-  // queries a tile, nor streamed without them: the streamed form starts
-  // past 576 features)
-  const bool cs = PACKED || a.kq > 128;
-  switch (nq * 4 + sq * 2 + cs) {
-#define EXACT_POOL_TC_LAUNCH(NQ, SQ, CS)                                   \
-  case NQ * 4 + SQ * 2 + CS:                                               \
-    if constexpr ((SQ || !PACKED) && (CS || !PACKED))                      \
-      return launch<NQ, SQ, PACKED, CS>(a, s);                             \
-    break;
-    EXACT_POOL_TC_LAUNCH(128, false, false)
-    EXACT_POOL_TC_LAUNCH(64, false, false)
-    EXACT_POOL_TC_LAUNCH(32, false, false)
-    EXACT_POOL_TC_LAUNCH(16, false, false)
-    EXACT_POOL_TC_LAUNCH(8, false, false)
-    EXACT_POOL_TC_LAUNCH(64, false, true)
-    EXACT_POOL_TC_LAUNCH(32, false, true)
-    EXACT_POOL_TC_LAUNCH(16, false, true)
-    EXACT_POOL_TC_LAUNCH(8, false, true)
-    EXACT_POOL_TC_LAUNCH(64, true, true)
-    EXACT_POOL_TC_LAUNCH(32, true, true)
-    EXACT_POOL_TC_LAUNCH(16, true, true)
-    EXACT_POOL_TC_LAUNCH(8, true, true)
-#undef EXACT_POOL_TC_LAUNCH
+  return W / rows > 65535 ? none : p;
+}
+
+// Launches the form plan() picks; the packed pool's FORM_WIDE is the
+// wrapper's to run.
+int dispatch(PoolArgs a, bool packed, void* stream) {
+  if (a.Q <= 0 || a.W <= 0) return (int)cudaSuccess;
+  const Plan p = plan(a.Q, a.D, a.dl, a.W, packed);
+  if (p.form == FORM_NONE || p.form == FORM_WIDE ||
+      (long long)a.fold * (a.tile / a.bins) >= NO_SLICE ||
+      (packed && a.tile / a.bins > 16) ||
+      (reinterpret_cast<uintptr_t>(a.x) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  a.kq = (a.dl + KC - 1) / KC * KC;
+  auto s = (cudaStream_t)stream;
+  if (p.form == FORM_RESIDENT) {
+    switch (p.nq) {
+      case 128: return launch<128>(a, s);
+      case 64: return launch<64>(a, s);
+      case 32: return launch<32>(a, s);
+      case 16: return launch<16>(a, s);
+      case 8: return launch<8>(a, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap xmap;
+  if (!x_tensor_map(&xmap, a, packed ? P_ROWS : ROWS)) return (int)cudaErrorInvalidValue;
+  if (!packed) {
+    if (a.qp == nullptr || a.qp_floats < p.scratch) return (int)cudaErrorInvalidValue;
+    return launch_wide(a, xmap, s);
+  }
+  switch (p.nq / 2) {
+    case 64: return launch_pipelined<64>(a, xmap, s);
+    case 32: return launch_pipelined<32>(a, xmap, s);
+    case 16: return launch_pipelined<16>(a, xmap, s);
+    case 8: return launch_pipelined<8>(a, xmap, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// The form (enum Form) a launch of the two-plane pool (packed 0) or of the
+// packed pool (packed 1) takes at Q queries, row stride D, d_live live
+// features and W pool columns, the queries a block in *tile and the floats
+// of query-plane scratch the launch needs in *scratch (0 but for B1's wide
+// form). The wrappers ask it before they allocate and launch.
+extern "C" int exact_pool_plan(int Q, int D, int d_live, int W, int packed,
+                               int* tile, long long* scratch) {
+  const Plan p = plan(Q, D, d_live, W, packed != 0);
+  *tile = p.nq;
+  *scratch = p.scratch;
+  return p.form;
+}
+
 // Both launch on the caller's stream and return cudaGetLastError() (0 =
-// launched), or cudaErrorInvalidValue for 65,535 or more row slices per
-// group, a live width outside 1 .. D, or a wide launch whose query planes'
-// scratch (qplanes, qplane_floats floats; unused by other forms) is
-// smaller than wide_plane_floats. The other checks are the Python
-// wrappers' (vectorsearch_torch/ops/exact.py). Each reports the form it
-// launched in form[0] (1 pipelined: B2's own mainloop or B1's wide one; 2
-// streamed, 3 resident; untouched when it launched nothing); the two-plane
-// one also reports the queries a block in form[1], so its `form` points at
-// two ints.
+// launched; nothing is launched for no query or no column), or
+// cudaErrorInvalidValue where exact_pool_plan finds no form (or, for the
+// packed pool, FORM_WIDE), for 65,535 or more row slices per group, for x
+// off a 16-byte boundary or a tensor map that fails, or for a wide launch
+// whose query planes' scratch (qplanes, qplane_floats floats; unused by
+// other forms) is smaller than exact_pool_plan's. The other checks are the
+// Python wrappers' (vectorsearch_torch/ops/exact.py).
 extern "C" int exact_pool_launch(const float* q, const float* x,
                                  const float* aux0, const float* aux1,
                                  float* out_s, int* out_i, int Q, int N, int D,
                                  int d_live, int tile, int bins, int fold, int W,
                                  int cosine, float* qplanes, long long qplane_floats,
-                                 void* stream, int* form) {
+                                 void* stream) {
   const PoolArgs a{q, x, aux0, aux1, nullptr, nullptr, out_s, out_i, Q, N, D,
-                   d_live, 0, tile, bins, fold, W, cosine, 0, 0.f, qplanes,
+                   d_live, 0, tile, bins, fold, W, cosine, 0.f, qplanes,
                    qplane_floats};
-  return dispatch<false>(a, stream, form);
+  return dispatch(a, false, stream);
 }
 
 extern "C" int exact_pool_packed_launch(const float* q, const float* x,
@@ -1786,8 +1594,8 @@ extern "C" int exact_pool_packed_launch(const float* q, const float* x,
                                         float* out, int Q, int N, int D,
                                         int d_live, int tile, int bins,
                                         int fold, int W, int cosine,
-                                        float slot_f, void* stream, int* form) {
+                                        float slot_f, void* stream) {
   const PoolArgs a{q, x, aux0, aux1, mult, qn2, out, nullptr, Q, N, D,
-                   d_live, 0, tile, bins, fold, W, cosine, 0, slot_f, nullptr, 0};
-  return dispatch<true>(a, stream, form);
+                   d_live, 0, tile, bins, fold, W, cosine, slot_f, nullptr, 0};
+  return dispatch(a, true, stream);
 }

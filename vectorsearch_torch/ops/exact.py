@@ -27,7 +27,10 @@ Intended differences from the JAX package (ROADMAP.md Queue C):
 - the JAX package's ``VSTPU_EXACT_PACKED`` environment override has no
   counterpart: ``packed=`` is the switch;
 - ``use_fused_exact_pool`` has no backend test, so the CPU runs the same
-  binned route as the card.
+  binned route as the card;
+- a pool of more than 65,535 column blocks raises (the grid's limit): past
+  ~536M rows at tile 1,024 and fold 8 on B1, ~268M on B2's pipelined form,
+  ~67M on its wide route (fold 1).
 """
 
 from __future__ import annotations
@@ -112,14 +115,17 @@ def _packed_steps(tile: int, bins: int, fold: int) -> tuple[float, float]:
 
 def _bind_tc(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
+    lib.exact_pool_plan.argtypes = [
+        i, i, i, i, i, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_longlong),
+    ]
+    lib.exact_pool_plan.restype = ctypes.c_int
     lib.exact_pool_launch.argtypes = [
         p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, ctypes.c_longlong, p,
-        ctypes.POINTER(ctypes.c_int),
     ]
     lib.exact_pool_launch.restype = ctypes.c_int
     lib.exact_pool_packed_launch.argtypes = [
         p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p,
-        ctypes.POINTER(ctypes.c_int),
     ]
     lib.exact_pool_packed_launch.restype = ctypes.c_int
 
@@ -127,32 +133,23 @@ def _bind_tc(lib) -> None:
 _count_lock = threading.Lock()
 
 #: Registry counter of B1's launches, by the form the kernel took
-#: (attribute ``form``): ``pipelined`` (rows over 128 features that x's
-#: tensor map takes: its own mainloop, a TMA ring fed with x and with the
-#: query planes split once a launch), ``resident`` (the query tile's planes
-#: split once into shared memory) or ``streamed`` (each step's query
-#: features copied and split beside the rows': wide rows TMA cannot take);
-#: and by the queries a block (attribute ``tile``, an int).
+#: (attribute ``form``): ``resident`` (rows of up to 128 live features: the
+#: narrow kernel, the query tile's planes split once into shared memory) or
+#: ``pipelined`` (wider rows: the wide form's own mainloop, a TMA ring fed
+#: with x and with the query planes split once a launch); and by the
+#: queries a block (attribute ``tile``, an int).
 LAUNCHES = "vectorsearch.exact_pool.launches"
 #: Registry counter of B2's launches, by the form the kernel took
 #: (attribute ``form``): ``pipelined`` (its own mainloop, resident query
-#: planes, a TMA ring) or ``streamed`` (the shared mainloop streaming the
-#: query tile: rows too wide for resident planes, or rows TMA cannot take).
+#: planes, a TMA ring) or ``wide`` (rows too wide for those planes: B1's
+#: wide form at fold 1, whose planes ``pack_tiles`` packs; each such
+#: launch of B1 counts under ``LAUNCHES`` too).
 PACKED_LAUNCHES = "vectorsearch.exact_pool.packed.launches"
-_FORMS = {1: "pipelined", 2: "streamed", 3: "resident"}  # csrc's enum Form
+_FORMS = {1: "pipelined", 2: "wide", 3: "resident"}  # csrc's enum Form
 _MAX_SLICES = 65_534  # csrc/exact_pool_tc.cu: 16-bit slice ids, one kept free
-_WIDE_QUERIES = 64  # csrc's W_NQ: queries a block of B1's wide form
-
-
-def _wide_plane_floats(qn: int, d_live: int) -> int:
-    """Floats of the query planes' scratch B1's wide form takes (csrc's
-    wide_plane_floats): two planes of 64 queries x 32 features for each
-    query tile and each 32-feature chunk of the live width; 0 for rows of
-    up to 128 features, which never take that form."""
-    kq = -(-d_live // 32) * 32
-    if kq <= 128:
-        return 0
-    return -(-qn // _WIDE_QUERIES) * kq * 2 * _WIDE_QUERIES
+# B2's wide route runs B1 over blocks of queries whose two fold-1 planes
+# (f32 scores, i32 rows) take at most this many bytes
+_PACK_BLOCK_BYTES = 1 << 30
 
 
 def _check_d_live(who: str, d_live, d: int) -> int:
@@ -161,6 +158,37 @@ def _check_d_live(who: str, d_live, d: int) -> int:
     if not 1 <= d_live <= d:
         raise ValueError(f"{who}: d_live={d_live} outside 1 .. {d}")
     return d_live
+
+
+def _pad_width(q_in, x, d_live):
+    """q_in and x as the kernels take them: a row stride that is a multiple
+    of 4 floats and x on a 16-byte boundary (16-byte copies and TMA tensor
+    maps need both). Otherwise both are copied with zero columns up to the
+    next multiple of 4; ``d_live`` (default: the width given) keeps the
+    original width, so the kernels skip the zeros and no bit changes. The
+    index's tables are lane-padded and never copy -> (q_in, x, d_live)."""
+    d = x.shape[1]
+    d_live = d if d_live is None else d_live
+    if d % 4 or x.data_ptr() % 16:
+        pad = (0, -d % 4)
+        q_in = torch.nn.functional.pad(q_in, pad)
+        x = torch.nn.functional.pad(x, pad)
+    return q_in, x, d_live
+
+
+def _plan(lib, who, qn, d, d_live, w, packed):
+    """(form, queries a block, scratch floats) of a launch, as csrc's
+    exact_pool_plan decides them; raises where no form takes the geometry
+    (more column blocks than a grid holds)."""
+    tile, scratch = ctypes.c_int(0), ctypes.c_longlong(0)
+    form = lib.exact_pool_plan(qn, d, d_live, w, int(packed),
+                               ctypes.byref(tile), ctypes.byref(scratch))
+    if form not in _FORMS:
+        raise ValueError(
+            f"{who}: no form of the kernel takes Q={qn} D={d} d_live={d_live} "
+            f"W={w} (more than 65,535 column blocks)"
+        )
+    return _FORMS[form], tile.value, scratch.value
 
 
 def _check_kernel_args(who, q_in, x, aux, metric, tile, bins, fold, w,
@@ -206,26 +234,27 @@ def exact_pool_cuda(q_in, x, aux, *, metric, tile, bins, fold, w,
     (pre-doubled for L2), x f32[N, D], aux f32[1|2, N] -> (scores f32[Q, W],
     row ids i32[Q, W]). ``d_live`` (default D): the kernel reads features
     0 .. d_live-1 only; the caller vouches that the others are zero in q_in
-    or in x (lane padding), so skipping them changes no bit. Rows over 128
-    live features take a scratch of split query planes (``torch.empty``,
-    3.9 MB at Q 512 x 960). ``exact_pool_cuda.launches`` counts the
-    launches, and the registry's ``LAUNCHES`` counts them by the form and
-    the query tile the kernel took."""
-    qn, d = q_in.shape
-    n = x.shape[0]
+    or in x (lane padding), so skipping them changes no bit. A width that
+    is no multiple of 4 is copied with zero columns first (``_pad_width``).
+    Rows over 128 live features take a scratch of split query planes
+    (``torch.empty``, 3.9 MB at Q 512 x 960, as csrc's exact_pool_plan
+    sizes it). ``exact_pool_cuda.launches`` counts the launches, and the
+    registry's ``LAUNCHES`` counts them by the form and the query tile the
+    kernel took."""
+    who = "exact_pool_cuda"
+    d_live = _check_d_live(who, d_live, q_in.shape[1])
+    _check_kernel_args(who, q_in, x, aux, metric, tile, bins, fold, w)
+    q_in, x, d_live = _pad_width(q_in, x, d_live)
+    (qn, d), n = q_in.shape, x.shape[0]
     cosine = metric == "COSINE"
     dev = x.device
-    d_live = _check_d_live("exact_pool_cuda", d_live, d)
-    _check_kernel_args("exact_pool_cuda", q_in, x, aux, metric, tile, bins,
-                       fold, w)
     lib = cuda_build.load("exact_pool_tc", _bind_tc)
+    form, nq, nplane = _plan(lib, who, qn, d, d_live, w, packed=False)
     outs = torch.empty((qn, w), dtype=torch.float32, device=dev)
     outi = torch.empty((qn, w), dtype=torch.int32, device=dev)
     # the wide form's query planes: released with the call, which the
     # caching allocator orders after the launch on this stream
-    nplane = _wide_plane_floats(qn, d_live)
     planes = torch.empty((nplane,), dtype=torch.float32, device=dev) if nplane else None
-    launched = (ctypes.c_int * 2)()  # the form and the queries a block
     with torch.cuda.device(dev):
         rc = lib.exact_pool_launch(
             q_in.data_ptr(), x.data_ptr(), aux[0].data_ptr(),
@@ -233,15 +262,14 @@ def exact_pool_cuda(q_in, x, aux, *, metric, tile, bins, fold, w,
             outs.data_ptr(), outi.data_ptr(),
             qn, n, d, d_live, tile, bins, fold, w, int(cosine),
             planes.data_ptr() if nplane else None, nplane,
-            torch.cuda.current_stream(dev).cuda_stream, launched,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"exact_pool_launch failed: CUDA error {rc}")
     with _count_lock:
         exact_pool_cuda.launches += 1
-    if launched[0]:  # 0: nothing to launch (no query or no column)
-        get_registry().inc(LAUNCHES, attrs={"form": _FORMS[launched[0]],
-                                            "tile": launched[1]})
+    if qn and w:  # else nothing was launched
+        get_registry().inc(LAUNCHES, attrs={"form": form, "tile": nq})
     return outs, outi
 
 
@@ -287,80 +315,21 @@ def bin_argmax(s: torch.Tensor, *, tile, bins, fold, w):
     return m.reshape(qn, w), rows.reshape(qn, w).to(torch.int32)
 
 
-def exact_pool_packed_cuda(q_in, x, aux, mult, qn2, *, metric, tile, bins,
-                           fold, w, slot_f, d_live=None):
-    """Launches the packed CUDA pool kernel on the current stream. q_in
-    f32[Q, D] (pre-doubled for L2), x f32[N, D], aux f32[1|2, N], mult and
-    qn2 f32[Q] (the quantization factor SQ/scale and ||q||^2) -> the packed
-    plane f32[Q, W]. ``d_live`` (default D): the kernel reads features
-    0 .. d_live-1 only; the caller vouches that the others are zero in q_in
-    or in x (lane padding), so skipping them changes no bit.
-    ``exact_pool_packed_cuda.launches`` counts the launches, and the
-    registry's ``PACKED_LAUNCHES`` counts them by the form the kernel
-    took."""
-    qn = q_in.shape[0]
-    n, d = x.shape
-    dev = x.device
-    _check_kernel_args("exact_pool_packed_cuda", q_in, x, aux, metric, tile,
-                       bins, fold, w, per_query=(("mult", mult), ("qn2", qn2)))
-    if slot_f != _packed_steps(tile, bins, fold)[0]:
-        raise ValueError(
-            f"exact_pool_packed_cuda: slot_f={slot_f} is not fold*tile/bins"
-        )
-    if tile // bins > 16:
-        raise ValueError(
-            f"exact_pool_packed_cuda: tile/bins={tile // bins} row slices per "
-            "tile, at most 16 (4-bit slice ids)"
-        )
-    d_live = _check_d_live("exact_pool_packed_cuda", d_live, d)
-    lib = cuda_build.load("exact_pool_tc", _bind_tc)
-    out = torch.empty((qn, w), dtype=torch.float32, device=dev)
-    cosine = metric == "COSINE"
-    form = ctypes.c_int(0)
-    with torch.cuda.device(dev):
-        rc = lib.exact_pool_packed_launch(
-            q_in.data_ptr(), x.data_ptr(), aux[0].data_ptr(),
-            aux[1].data_ptr() if cosine else None,
-            mult.data_ptr(), qn2.data_ptr(), out.data_ptr(),
-            qn, n, d, d_live, tile, bins, fold, w, int(cosine), slot_f,
-            torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(form),
-        )
-    if rc != 0:
-        raise RuntimeError(f"exact_pool_packed_launch failed: CUDA error {rc}")
-    with _count_lock:
-        exact_pool_packed_cuda.launches += 1
-    if form.value:  # 0: nothing to launch (no query or no column)
-        get_registry().inc(PACKED_LAUNCHES,
-                           attrs={"form": _FORMS[form.value]})
-    return out
-
-
-exact_pool_packed_cuda.launches = 0
-
-
-def exact_pool_packed_plain(q_in, x, aux, mult, qn2, *, metric, tile, bins,
-                            fold, w, slot_f, d_live=None):
-    """The packed kernel's function in plain PyTorch (same arguments and
-    output; ``d_live`` is not needed: the columns past it are zero and add
-    exact zeros to the full product). Per TILE: the raw (max, smallest
-    slot) of each bin over the tile's row slices, compressed once into
+def pack_tiles(m, rows, mult, qn2, *, metric, tile, bins, fold, w, slot_f):
+    """B2's packing of B1's pool at fold 1 (m f32[Q, T * bins], rows
+    i32[Q, T * bins]: each of the T tiles' raw max per bin and the row that
+    attains it; a dead bin's m is -inf, its row any) -> the packed plane
+    f32[Q, W]. Per tile, each bin's (max, slot) is compressed once into
         p = rint(v * mult) * F + (j * tile/bins + slot),  F = slot_f,
     with v = -sqrt(max(||q||^2 - max, 0)) (L2: minus the distance) or
-    v = max (cosine) and j the tile's place in its fold group; the pool
-    column holds the max of p over the group's tiles. Tiles are quantized
-    one by one, so two tiles whose maxima fall on one step resolve toward
-    the higher slot. rint rounds half to even. A dead bin reads -inf."""
-    cross = matmul_nt(q_in, x)  # [Q, N], full f32
-    if metric == "COSINE":
-        s = cross * aux[0][None, :] + aux[1][None, :]
-    else:
-        s = cross - aux[0][None, :]
-    del cross
-    qn, n = s.shape
+    v = max (cosine), slot the row's slice in its tile and j the tile's
+    place in its fold group; the pool column holds the max of p over the
+    group's tiles. Tiles are quantized one by one, so two tiles whose
+    maxima fall on one step resolve toward the higher slot. rint rounds half
+    to even. A dead bin reads -inf."""
+    qn = m.shape[0]
     per = tile // bins
-    nn = -(-n // tile)  # the tiles that hold rows (the TPU kernel's grid)
-    m, rows = bin_argmax(s, tile=tile, bins=bins, fold=1, w=nn * bins)
-    del s
+    nn = m.shape[1] // bins
     m = m.view(qn, nn, bins)
     slot = ((rows.view(qn, nn, bins) % tile) // bins).float()
     if metric == "COSINE":
@@ -372,6 +341,105 @@ def exact_pool_packed_plain(q_in, x, aux, mult, qn2, *, metric, tile, bins,
     ng = w // bins
     p = torch.nn.functional.pad(p, (0, 0, 0, ng * fold - nn), value=float("-inf"))
     return p.view(qn, ng, fold, bins).amax(dim=2).reshape(qn, w)
+
+
+def exact_pool_packed_cuda(q_in, x, aux, mult, qn2, *, metric, tile, bins,
+                           fold, w, slot_f, d_live=None):
+    """Launches the packed CUDA pool kernel on the current stream. q_in
+    f32[Q, D] (pre-doubled for L2), x f32[N, D], aux f32[1|2, N], mult and
+    qn2 f32[Q] (the quantization factor SQ/scale and ||q||^2) -> the packed
+    plane f32[Q, W]. ``d_live`` (default D): the kernel reads features
+    0 .. d_live-1 only; the caller vouches that the others are zero in q_in
+    or in x (lane padding), so skipping them changes no bit. A width that
+    is no multiple of 4 is copied with zero columns first (``_pad_width``).
+    Rows too wide for the pipelined form's resident planes take
+    ``_packed_wide_route``. ``exact_pool_packed_cuda.launches`` counts the
+    calls, and the registry's ``PACKED_LAUNCHES`` counts them by the form
+    the pool took."""
+    who = "exact_pool_packed_cuda"
+    (qn, d), n = q_in.shape, x.shape[0]
+    dev = x.device
+    _check_kernel_args(who, q_in, x, aux, metric, tile, bins, fold, w,
+                       per_query=(("mult", mult), ("qn2", qn2)))
+    if slot_f != _packed_steps(tile, bins, fold)[0]:
+        raise ValueError(f"{who}: slot_f={slot_f} is not fold*tile/bins")
+    if tile // bins > 16:
+        raise ValueError(
+            f"{who}: tile/bins={tile // bins} row slices per tile, at most 16 "
+            "(4-bit slice ids)"
+        )
+    d_live = _check_d_live(who, d_live, d)
+    q_in, x, d_live = _pad_width(q_in, x, d_live)
+    d = x.shape[1]
+    lib = cuda_build.load("exact_pool_tc", _bind_tc)
+    form, _nq, _scratch = _plan(lib, who, qn, d, d_live, w, packed=True)
+    geom = dict(metric=metric, tile=tile, bins=bins, fold=fold, w=w,
+                slot_f=slot_f, d_live=d_live)
+    if form == "wide":
+        out = _packed_wide_route(q_in, x, aux, mult, qn2, **geom)
+    else:
+        out = torch.empty((qn, w), dtype=torch.float32, device=dev)
+        cosine = metric == "COSINE"
+        with torch.cuda.device(dev):
+            rc = lib.exact_pool_packed_launch(
+                q_in.data_ptr(), x.data_ptr(), aux[0].data_ptr(),
+                aux[1].data_ptr() if cosine else None,
+                mult.data_ptr(), qn2.data_ptr(), out.data_ptr(),
+                qn, n, d, d_live, tile, bins, fold, w, int(cosine), slot_f,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"exact_pool_packed_launch failed: CUDA error {rc}")
+    with _count_lock:
+        exact_pool_packed_cuda.launches += 1
+    if qn and w:  # else nothing was launched
+        get_registry().inc(PACKED_LAUNCHES, attrs={"form": form})
+    return out
+
+
+exact_pool_packed_cuda.launches = 0
+
+
+def _packed_wide_route(q_in, x, aux, mult, qn2, *, metric, tile, bins, fold,
+                       w, slot_f, d_live):
+    """B2 on rows too wide for its pipelined form's resident planes: B1
+    (``exact_pool_cuda``, its wide form) at fold 1, then ``pack_tiles``, over
+    blocks of queries whose two fold-1 planes take at most
+    ``_PACK_BLOCK_BYTES``. B1's wide form computes B2's arithmetic (the same
+    3xTF32 passes and chunk sums), and the sqrt, the round-half-even and the
+    products are IEEE single operations on both sides, so the plane is the
+    one B2's own mainloop would write."""
+    qn, n = q_in.shape[0], x.shape[0]
+    w1 = -(-n // tile) * bins
+    block = max(1, _PACK_BLOCK_BYTES // max(1, 8 * w1))
+    out = torch.empty((qn, w), dtype=torch.float32, device=x.device)
+    for s in range(0, qn, block):
+        e = min(qn, s + block)
+        m, rows = exact_pool_cuda(q_in[s:e], x, aux, metric=metric, tile=tile,
+                                  bins=bins, fold=1, w=w1, d_live=d_live)
+        out[s:e] = pack_tiles(m, rows, mult[s:e], qn2[s:e], metric=metric,
+                              tile=tile, bins=bins, fold=fold, w=w,
+                              slot_f=slot_f)
+    return out
+
+
+def exact_pool_packed_plain(q_in, x, aux, mult, qn2, *, metric, tile, bins,
+                            fold, w, slot_f, d_live=None):
+    """The packed kernel's function in plain PyTorch (same arguments and
+    output; ``d_live`` is not needed: the columns past it are zero and add
+    exact zeros to the full product): the binned pool at fold 1, whose bins
+    are each tile's raw (max, smallest row), packed by ``pack_tiles``."""
+    cross = matmul_nt(q_in, x)  # [Q, N], full f32
+    if metric == "COSINE":
+        s = cross * aux[0][None, :] + aux[1][None, :]
+    else:
+        s = cross - aux[0][None, :]
+    del cross
+    nn = -(-x.shape[0] // tile)  # the tiles that hold rows (the TPU kernel's grid)
+    m, rows = bin_argmax(s, tile=tile, bins=bins, fold=1, w=nn * bins)
+    del s
+    return pack_tiles(m, rows, mult, qn2, metric=metric, tile=tile, bins=bins,
+                      fold=fold, w=w, slot_f=slot_f)
 
 
 # ------------------------------------------------------------ the wrapper
