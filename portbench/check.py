@@ -1,6 +1,8 @@
 """The comparison that decides ``correct``.
 
-Four numbers, each against a limit of its own:
+Distances are in the metric the cell's configuration states
+(``index.metric``: L2, or COSINE as 1 - similarity), and the reference
+computes them in it. Four numbers, each against a limit of its own:
 
 - ``miss``: of the reference's top-k slots of the sampled queries (exact,
   float64, over the rows each query certainly saw), the share the program
@@ -40,11 +42,12 @@ def bad_rows(log: knn.Log, gids, ts, te) -> int:
     return bad + int((srt[:, 1:] == srt[:, :-1]).sum())
 
 
-def sampled(log: knn.Log, queries, gids, dists, ts, te, k: int, device):
-    """(miss, dist_err) over the sampled answers."""
+def sampled(log: knn.Log, queries, gids, dists, ts, te, k: int, device,
+            metric: str = "L2"):
+    """(miss, dist_err) over the sampled answers, in ``metric``."""
     gids = np.asarray(gids, np.int64)
-    ref_g, ref_d = knn.topk_certain(log, queries, ts, te, k, device)
-    true_d = knn.distances(log, queries, gids, device)  # NaN at -1 / unknown
+    ref_g, ref_d = knn.topk_certain(log, queries, ts, te, k, device, metric=metric)
+    true_d = knn.distances(log, queries, gids, device, metric)  # NaN at -1 / unknown
     valid = (gids >= 0) & ~np.isnan(true_d)
     full = valid.sum(1) == k
     prog_kth = np.where(full, np.nanmax(np.where(valid, true_d, -np.inf), 1), np.inf)

@@ -62,8 +62,12 @@ class _Port:
 class _Control:
     """The reference in TF32 arithmetic in the program's place."""
 
+    def __init__(self, metric):
+        self.metric = metric
+
     def open(self, config, device, capacity):
-        return control.BruteIndex(int(config["data"]["dim"]), capacity, device)
+        return control.BruteIndex(int(config["data"]["dim"]), capacity, device,
+                                  metric=self.metric)
 
     def params(self, traffic):
         return None
@@ -98,7 +102,11 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: str,
     cfg, tr = cell.config, cell.traffic
     if tr.get("loop", "closed") != "closed":
         raise ValueError(f"{cell.name}: only closed-loop traffic is generated")
-    sysm = _Port() if system == "port" else _Control()
+    metric = cfg["index"].get("metric", "L2")
+    if metric not in knn.METRICS:
+        raise ValueError(f"{cell.name}: its configuration's metric {metric!r} is "
+                         f"not one the reference computes ({', '.join(knn.METRICS)})")
+    sysm = _Port() if system == "port" else _Control(metric)
     cuda = str(device).startswith("cuda")
     loops = load.writer_loops(tr, seconds)
     w = tr.get("writer") or {}
@@ -209,7 +217,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: str,
         _log(f"writer errors: {errors[:3]}")
     t_ref = time.perf_counter()
     log = knn.Log.build(base_gids, inputs.rows, log_writes[0], log_writes[1])
-    numbers = compare(log, answers, inputs.queries, ctx, tr, k, seed, device)
+    numbers = compare(log, answers, inputs.queries, ctx, tr, k, seed, device, metric)
     _log(f"reference: {time.perf_counter() - t_ref:.3f} s over "
          f"{min(int(tr['sample']), len(answers['te']))} sampled answers and "
          f"{len(answers['te'])} checked for rows they could not see")
@@ -231,9 +239,9 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: str,
     return result
 
 
-def compare(log, answers, pool, ctx, traffic, k, seed, device) -> dict:
-    """bad_rows over every answer; miss and dist_err over answers drawn
-    from the seed among those that came back in the window."""
+def compare(log, answers, pool, ctx, traffic, k, seed, device, metric) -> dict:
+    """bad_rows over every answer; miss and dist_err, in ``metric``, over
+    answers drawn from the seed among those that came back in the window."""
     bad = check.bad_rows(log, answers["gids"], answers["ts"], answers["te"])
     te = answers["te"]
     cand = np.flatnonzero((te >= ctx.t_open) & (te <= ctx.t_close))
@@ -244,5 +252,5 @@ def compare(log, answers, pool, ctx, traffic, k, seed, device) -> dict:
     rows = np.sort(rng.choice(cand, size=take, replace=False))
     q = pool[answers["qidx"][rows]] + answers["pert"][rows][:, None]
     miss, err = check.sampled(log, q, answers["gids"][rows], answers["dists"][rows],
-                              answers["ts"][rows], te[rows], k, device)
+                              answers["ts"][rows], te[rows], k, device, metric)
     return {"miss": miss, "dist_err": err, "bad_rows": bad}

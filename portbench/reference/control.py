@@ -2,10 +2,13 @@
 configurations state, put in the program's place.
 
 ``BruteIndex`` keeps every row on the device and answers each query by a
-full scan, squared distances expanded as |q|^2 - 2 q.x + |x|^2 the way a
-plain float32 search computes them, the norms in f32 and the products q.x
-with TF32 inputs (each f32 operand rounded to a 10-bit mantissa, as the
-card's TF32 tensor cores round them), accumulated in f32. It serves the
+full scan in the metric the configuration states, the way a plain float32
+search computes it: under L2 squared distances expanded as
+|q|^2 - 2 q.x + |x|^2, under COSINE the similarity q.x / (|q| |x|) (0 where
+either norm is 0) as the score and 1 - similarity as the distance. The norms
+are f32 and the products q.x take TF32 inputs (each f32 operand rounded to a
+10-bit mantissa, as the card's TF32 tensor cores round them), accumulated in
+f32. It serves the
 calls the load generator makes (``add_all``, ``delete_all``,
 ``query_batch_arrays``), so a run with it in the program's place goes
 through the same traffic and the same comparison. The comparison must find it not correct.
@@ -18,6 +21,8 @@ import threading
 import numpy as np
 import torch
 
+from portbench.reference.knn import METRICS, similarity
+
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
     """x (f32) rounded to TF32's 10-bit mantissa, to nearest."""
@@ -26,7 +31,11 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
 
 
 class BruteIndex:
-    def __init__(self, dim: int, capacity: int, device, block_rows: int = 1 << 20):
+    def __init__(self, dim: int, capacity: int, device, block_rows: int = 1 << 20,
+                 metric: str = "L2"):
+        if metric not in METRICS:
+            raise ValueError(f"the control computes {', '.join(METRICS)}, not {metric!r}")
+        self.metric = metric
         self.device = torch.device(device)
         self.rows = torch.zeros((capacity, dim), dtype=torch.float32,
                                 device=self.device)
@@ -60,13 +69,20 @@ class BruteIndex:
         best_g = torch.full((len(q), k), -1, dtype=torch.int64, device=self.device)
         for off in range(0, n, self.block_rows):
             x = self.rows[off : min(n, off + self.block_rows)]
-            d2 = qn - 2.0 * (q @ tf32(x).T) + (x * x).sum(1)[None, :]
+            if self.metric == "L2":
+                d2 = qn - 2.0 * (q @ tf32(x).T) + (x * x).sum(1)[None, :]
+            else:
+                d2 = 1.0 - similarity(q @ tf32(x).T, torch.sqrt(qn),
+                                      torch.sqrt((x * x).sum(1))[None, :])
             d2 = torch.where(alive[off : off + len(x)][None, :], d2, float("inf"))
             v, i = torch.topk(d2, min(k, len(x)), dim=1, largest=False)
             v2, i2 = torch.topk(torch.cat([best_d, v], 1), k, dim=1, largest=False)
             best_g = torch.gather(torch.cat([best_g, i + off], 1), 1, i2)
             best_d = v2
         gids = torch.where(torch.isinf(best_d), -1, best_g).cpu().numpy()
+        if self.metric == "COSINE":
+            dists = best_d.cpu().numpy()
+            return gids, 1.0 - dists, dists
         dists = torch.sqrt(best_d.clamp_min(0.0)).cpu().numpy()
         return gids, -dists, dists
 

@@ -1,5 +1,10 @@
-"""Exact k nearest neighbours under L2, in float64, over the rows a query
-could see.
+"""Exact k nearest neighbours in float64, under the metric the cell's
+configuration states, over the rows a query could see.
+
+- ``"L2"``: the Euclidean distance.
+- ``"COSINE"``: ``1 - q.x / (|q| |x|)``, with the similarity 0 (the distance
+  1) where either norm is 0, as the port and the Java original
+  (``Distances.cosine``) define it. No square root is taken.
 
 A query sent at ``ts`` whose answer came back at ``te`` runs while writes
 land, so it sees:
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 _INF = float("inf")
+METRICS = ("L2", "COSINE")
 
 
 @dataclasses.dataclass
@@ -81,23 +87,51 @@ def _sq(q, x):
             + (x * x).sum(1)[None, :]).clamp_min_(0.0)
 
 
-def distances(log: Log, queries, gids, device) -> np.ndarray:
+def _check(metric: str) -> None:
+    if metric not in METRICS:
+        raise ValueError(f"the reference computes {', '.join(METRICS)} "
+                         f"distances, not {metric!r}")
+
+
+def similarity(dots, qn, xn):
+    """dots / (qn xn), 0 where either norm is 0 (the zero-norm rule)."""
+    denom = qn * xn
+    zero = denom == 0.0
+    return torch.where(zero, 0.0, dots / torch.where(zero, 1.0, denom))
+
+
+def _cos(q, x):
+    """Cosine distances [Q, N] in float64."""
+    qn = torch.sqrt((q * q).sum(1))[:, None]
+    xn = torch.sqrt((x * x).sum(1))[None, :]
+    return 1.0 - similarity(q @ x.T, qn, xn)
+
+
+def distances(log: Log, queries, gids, device, metric: str = "L2") -> np.ndarray:
     """f64 [Q, k]: the true distance of each returned gid (NaN where the
     gid is unknown or -1)."""
+    _check(metric)
     gids = np.asarray(gids, np.int64)
     ok = (gids >= 0) & (gids < len(log.add_start))
     rows = log.vectors[np.where(ok, gids, 0)]  # [Q, k, d]
     q = torch.as_tensor(np.asarray(queries), device=device, dtype=torch.float64)
     x = torch.as_tensor(rows, device=device, dtype=torch.float64)
-    d = torch.sqrt(((x - q[:, None, :]) ** 2).sum(-1)).cpu().numpy()
+    if metric == "L2":
+        d = torch.sqrt(((x - q[:, None, :]) ** 2).sum(-1)).cpu().numpy()
+    else:
+        dots = (x * q[:, None, :]).sum(-1)
+        qn = torch.sqrt((q * q).sum(-1))[:, None]
+        xn = torch.sqrt((x * x).sum(-1))
+        d = (1.0 - similarity(dots, qn, xn)).cpu().numpy()
     d[~ok] = np.nan
     return d
 
 
 def topk_certain(log: Log, queries, ts, te, k: int, device,
-                 budget_bytes: int = 1 << 31):
+                 budget_bytes: int = 1 << 31, metric: str = "L2"):
     """(gids i64 [Q, k], distances f64 [Q, k]): each query's exact top k
     over the rows it certainly saw; -1 / inf past the rows there were."""
+    _check(metric)
     nq = len(queries)
     q_all = torch.as_tensor(np.asarray(queries), device=device, dtype=torch.float64)
     ts_all = torch.as_tensor(np.asarray(ts, np.float64), device=device)
@@ -117,7 +151,7 @@ def topk_certain(log: Log, queries, ts, te, k: int, device,
         gid = torch.arange(off, off + x.shape[0], device=device)
         for qo in range(0, nq, qc):
             qs = slice(qo, qo + qc)
-            d2 = _sq(q_all[qs], x)
+            d2 = _sq(q_all[qs], x) if metric == "L2" else _cos(q_all[qs], x)
             seen = kn[None, :] & (ack[None, :] < ts_all[qs, None]) & \
                 (dst[None, :] > te_all[qs, None])
             d2 = torch.where(seen, d2, _INF)
@@ -130,4 +164,6 @@ def topk_certain(log: Log, queries, ts, te, k: int, device,
             best_g[qs] = torch.gather(cand_g, 1, i2)
         del x
     best_g = torch.where(torch.isinf(best_d), -1, best_g)
+    if metric == "COSINE":
+        return best_g.cpu().numpy(), best_d.cpu().numpy()
     return best_g.cpu().numpy(), torch.sqrt(best_d).cpu().numpy()
