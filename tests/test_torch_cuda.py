@@ -299,6 +299,44 @@ def test_packed_kernel_matches_plain(cuda, rng, metric, n, tile, fold, d,
     assert (kp[live] == np.round(kp[live])).all()
 
 
+@pytest.mark.parametrize("metric", ["COSINE", "L2"])
+def test_wide_route_at_a_text_embedding_group_equals_plain(cuda, metric):
+    """B2's wide route at the 2-segment group of a 1M-row-segment corpus of
+    768 features (2,000,128 rows, Q 512: one pass of B1 at fold 1, then
+    ``pack_tiles``) gives ``exact_pool_packed_plain``'s plane bit for bit.
+    The features are small integers, so every product is exact in both
+    (3xTF32 on the tensor cores, full f32 in the plain version), and so is
+    every bin's winner (the smallest row on a tie). A zero row, rows left
+    out, a pool group's rows all left out (its bins dead); one
+    ``wide_pass`` span, and a ``PackTimer`` reads the pack's device time."""
+    n, d, qn = 2_000_128, 768, 512
+    g = torch.Generator(device="cuda").manual_seed(768)
+    x = torch.randint(-8, 9, (n, d), generator=g, device="cuda").float()
+    q = torch.randint(-8, 9, (qn, d), generator=g, device="cuda").float()
+    x[7] = 0.0
+    valid = torch.rand(n, generator=g, device="cuda") > 0.1
+    valid[8 * 1024:2 * 8 * 1024] = False  # the second pool group
+    q_in, aux, mult, qn2, _step, geom = te.packed_pool_inputs(q, x, valid, metric)
+    assert (geom["tile"], geom["fold"], geom["w"]) == (1024, 8, 245 * 128)
+    registry = get_registry()
+    s0 = max((r.seq for r in registry.spans().records), default=-1)
+    wide = registry.counter_value(te.PACKED_LAUNCHES, {"form": "wide"})
+    packs = []
+    timer = te.PackTimer(lambda name, ms: packs.append((name, ms)))
+    kp = te.exact_pool_packed_cuda(q_in, x, aux, mult, qn2, **geom, packs=timer)
+    pp = te.exact_pool_packed_plain(q_in, x, aux, mult, qn2, **geom)
+    torch.cuda.synchronize()
+    assert registry.counter_value(te.PACKED_LAUNCHES, {"form": "wide"}) == wide + 1
+    assert torch.equal(kp, pp)
+    live = torch.isfinite(pp)
+    assert live.any() and not live[:, 128:256].any()
+    passes = [r.attrs for r in registry.spans().records
+              if r.seq > s0 and r.name == te.WIDE_PASS]
+    assert passes == [{"queries": qn, "rows": n}]
+    timer.finish()
+    assert [p[0] for p in packs] == [te.PACK_MS] and packs[0][1] > 0
+
+
 def test_kernel_rejects_too_many_row_slices(cuda, rng):
     x = torch.from_numpy(rng.normal(size=(2000, 16)).astype(np.float32)).to(cuda)
     valid = torch.ones(2000, dtype=torch.bool, device=cuda)

@@ -41,6 +41,7 @@ import time
 from collections import defaultdict, deque
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import torch
 import torch.autograd.profiler as _autograd_profiler
 
 #: (perf_counter_ns, time_ns) read together at import: a span's
@@ -233,6 +234,24 @@ def _otel_span(name: str, attrs: dict | None):
         for k, v in (attrs or {}).items():
             sp.set_attribute(k, v)
         yield sp
+
+
+def device_mark(device: torch.device):
+    """A point in time on ``device``: a timing CUDA event recorded on its
+    current stream (readable once the work before it has completed, so
+    taking one waits for nothing), the host clock on the CPU."""
+    if device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(device))
+        return ev
+    return time.perf_counter()
+
+
+def elapsed_ms(a, b) -> float:
+    """Milliseconds from one ``device_mark`` of a device to a later one."""
+    if isinstance(a, float):
+        return (b - a) * 1000.0
+    return a.elapsed_time(b)
 
 
 class QueryLock:
