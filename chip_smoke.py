@@ -12,11 +12,11 @@ result):
    one nvcc per source, all started together) for sm_90a from the checkout,
    prints each kernel's registers and spills (the ADC kernels one line per
    form, line width and FULL flag; B2's pipelined form one line per query
-   tile and B1's wide form, a spill or other than 168 registers fails),
-   and counts the warpgroup MMA (HGMMA) instructions in the SASS
+   tile and B1's and B2's wide forms, a spill or other than 168 registers
+   fails), and counts the warpgroup MMA (HGMMA) instructions in the SASS
    (cuobjdump) of every instantiation of the exact pools' kernels, B1's
-   narrow and wide forms and B2's pipelined form: none in any of them, or
-   no instantiation of one, fails; beside them it builds the exact
+   narrow and wide forms and B2's pipelined and wide forms: none in any of
+   them, or no instantiation of one, fails; beside them it builds the exact
    pool's copy-only variant (EXACT_POOL_FEED_ONLY) for phase 5;
 3. kernel vs plain on the card:
    - the exact-pool kernel (B1) at every shape a sift1m exact batch gives it
@@ -38,13 +38,22 @@ result):
      and the 2-segment group, N 2,000,128, each with the kernel reading only
      the 96 live features (d_live, as the index calls it), and the 2-segment
      group over all 128), a cosine case with a zero-norm row, a tail case
-     with dead bins and fold 1 and an explicit tile 512, fold 2 geometry;
-     the packed planes compare level by level (within one quantization
-     step) and slot by slot, then the decoded top-k; each check names the
-     form the launch took (the registry's counter); then B2's timings (the
+     with dead bins and fold 1 and an explicit tile 512, fold 2 geometry,
+     and B2's wide form at the Cohere10M subgroups' shapes (768 features
+     near unit centres, under COSINE and L2, a zero row, ~2% of the rows
+     and the pad rows left out, the second pool group's rows all left out:
+     the 8-segment group, N 8,000,512, at Q 512 with the plain side over
+     the first and the last 32 queries, and the 2-segment group, N
+     2,000,128, at Q 200, whose last query tile holds 8 queries, the plain
+     side over all 200); the packed planes compare level by level (within
+     one quantization step) and slot by slot, then the decoded top-k; each
+     check names the form the launch took (the registry's counter; the
+     Cohere10M cases must take the wide form); then B2's timings (the
      kernel at the Deep10M subgroups' shapes, its plain version over 64
      queries, torch.matmul, its bound and 3xTF32 ceiling, and the pipelined
-     form's registers and spills beside them; phase 5 lists what);
+     form's registers and spills beside them; the wide form at the Cohere10M
+     groups under COSINE, torch.matmul, its bound and 3xTF32 ceiling; phase
+     5 lists what);
    - the ADC kernels (B3 pool, B4 scores, B5 scan, B5 precise scan) at the
      sift1m segment shape (Q 512, M 16, K 256, N 100,096), a segment under
      16,384 rows (N 10,112), a tail case (N 50,123, ~2% valid rows, dead
@@ -151,7 +160,8 @@ result):
    TB/s); for B2 its useful
    TFLOP/s, 3xTF32 ceiling and bound both at the padded D 128 and at the
    96 live features the index asks for, beside torch.matmul of the padded
-   and of the live product.
+   and of the live product, and its wide form's at Cohere10M's two groups
+   (the bytes of its bound beside it: 24.9 and 6.2 GB at 3.35 TB/s).
 
 Every kernel's launch count is set to 0 just before each main-path run and
 read just after. The line before the last names the card and its power
@@ -278,34 +288,36 @@ def _build_all():
 
 _EXACT_FORM = re.compile(
     r"exact_pool_(?:tc_kernel"
-    r"|pipelined_kernel(?:<(\d+)>|ILi(\d+)E)|(wide)_kernel|(query_planes)_kernel)")
+    r"|pipelined_kernel(?:<(\d+)>|ILi(\d+)E)"
+    r"|wide_kernel(?:<(true|false)>|ILb([01])E)|(query_planes)_kernel)")
 # the forms that run on the tensor cores (every instantiation holds HGMMA)
-_EXACT_FORMS = ("B1 narrow", "B1 wide", "B2 pipelined")
+_EXACT_FORMS = ("B1 narrow", "B1 wide", "B2 pipelined", "B2 wide")
 
 
 def _exact_form(name):
     """(form, NQW) of an exact-pool kernel from its demangled or mangled
     name: B1's narrow form (exact_pool_tc_kernel<NQ>; NQW None), B2's
-    pipelined form (exact_pool_pipelined_kernel<NQW>), B1's wide form
-    (exact_pool_wide_kernel) or its prologue, which splits the query planes
-    (exact_pool_query_planes_kernel, "B1 query planes": no MMA); None for
-    any other name."""
+    pipelined form (exact_pool_pipelined_kernel<NQW>), B1's and B2's wide
+    forms (exact_pool_wide_kernel<false> and <true>) or their prologue,
+    which splits the query planes (exact_pool_query_planes_kernel, "B1
+    query planes": no MMA); None for any other name."""
     m = _EXACT_FORM.search(name)
     if m is None:
         return None
     if m.group(1) or m.group(2):
         return "B2 pipelined", int(m.group(1) or m.group(2))
-    if m.group(3):
-        return "B1 wide", None
-    if m.group(4):
+    if m.group(3) or m.group(4):
+        return ("B2 wide" if m.group(3) == "true" or m.group(4) == "1"
+                else "B1 wide"), None
+    if m.group(5):
         return "B1 query planes", None
     return "B1 narrow", None
 
 
 def _pipelined_ptxas(compiler_out):
     """{form: (registers, spill store bytes)} of every instantiation of the
-    warp-specialised forms ("B2 pipelined NQW <n>", "B1 wide"), from nvcc's
-    ptxas -v output."""
+    warp-specialised forms ("B2 pipelined NQW <n>", "B1 wide", "B2 wide"),
+    from nvcc's ptxas -v output."""
     out, key, spill = {}, None, None
     for line in compiler_out.splitlines():
         if "Compiling entry" in line:
@@ -313,8 +325,8 @@ def _pipelined_ptxas(compiler_out):
             key = None
             if form and form[0] == "B2 pipelined":
                 key = f"B2 pipelined NQW {form[1]}"
-            elif form and form[0] == "B1 wide":
-                key = "B1 wide"
+            elif form and form[0] in ("B1 wide", "B2 wide"):
+                key = form[0]
             spill = None
         elif key is not None and "spill stores" in line:
             spill = int(line.split("bytes spill stores")[0].split(",")[-1])
@@ -575,6 +587,40 @@ def _deep_case(name, segs, *, seed, alive_frac=0.98, qn=512):
     return dict(name=name, q=q.contiguous(), x=x, valid=valid, metric="L2")
 
 
+def _cohere_case(name, segs, metric, *, seed, qn=512):
+    """A Cohere10M subgroup's table made on the card from a seed (the
+    cohere10m-exact configuration's rows: 768 features near 4,096 unit
+    centres, noise 0.02, not normalised; queries a centre plus 0.02 noise):
+    `segs` segments of pad_cap(1,000,000) = 1,000,064 rows, the pad rows
+    past 1,000,000 of each segment zero and invalid, ~2% of the rest
+    invalid, row 7 zero and valid, and the rows of the second pool group
+    (rows 8,192 .. 16,383 at tile 1,024 and fold 8) all invalid, so its
+    bins (pool columns 128 .. 255) are dead."""
+    import torch
+
+    per, d = 1_000_064, 768
+    n = segs * per
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    centers = torch.randn(4096, d, device="cuda", generator=g)
+    centers /= centers.norm(dim=1, keepdim=True)
+    x = torch.empty(n, d, device="cuda")
+    for off in range(0, n, 1_000_000):
+        hi = min(off + 1_000_000, n)
+        x[off:hi] = centers[torch.randint(0, 4096, (hi - off,), device="cuda",
+                                          generator=g)]
+        x[off:hi] += 0.02 * torch.randn(hi - off, d, device="cuda", generator=g)
+    q = centers[torch.randint(0, 4096, (qn,), device="cuda", generator=g)]
+    q += 0.02 * torch.randn(qn, d, device="cuda", generator=g)
+    pad = torch.arange(n, device="cuda") % per >= 1_000_000
+    x[pad] = 0.0
+    x[7] = 0.0
+    valid = (torch.rand(n, device="cuda", generator=g) < 0.98) & ~pad
+    valid[7] = True
+    valid[8 * 1024:16 * 1024] = False
+    return dict(name=name, q=q.contiguous(), x=x, valid=valid, metric=metric,
+                dead_cols=(128, 256), form="wide")
+
+
 def _packed_forms(exact_ops, registry):
     """{form: B2 launches so far} from the port's registry counter."""
     return {f: registry.counter_value(exact_ops.PACKED_LAUNCHES, {"form": f})
@@ -592,8 +638,11 @@ def _form_taken(before, after):
 def _check_packed(case, exact_ops, traversal_ops, *, plain_q=None, tile_n=None,
                   fold=None, d_live=None):
     """The packed kernel vs its plain version on one case (the plain side
-    over the first `plain_q` queries when given; `d_live`: the kernel reads
-    only the first features, the rest being zero). The planes: dead bins in
+    over `plain_q` queries when given, the first half and the last half, so
+    a ragged last query tile is compared; `d_live`: the kernel reads only
+    the first features, the rest being zero; the case's `form`, if given:
+    the form the launch must count; its `dead_cols`, if given: pool columns
+    that no live row reaches, dead in both planes). The planes: dead bins in
     the same places, quantized levels floor(p/F) within 1 step, and where
     the slots differ the kernel's row must be a near-winner (its own level,
     in the plain arithmetic, within 1 step of the plain winner's: a raw
@@ -612,16 +661,25 @@ def _check_packed(case, exact_ops, traversal_ops, *, plain_q=None, tile_n=None,
     forms = _packed_forms(exact_ops, get_registry())
     kp = exact_ops.exact_pool_packed_cuda(q_in, x, aux, mult, qn2, **geom)
     form = _form_taken(forms, _packed_forms(exact_ops, get_registry()))
-    nq = q.shape[0] if plain_q is None else plain_q
+    if case.get("form") not in (None, form):
+        raise AssertionError(f"{case['name']}: {form} form, not {case['form']}")
+    qall = q.shape[0]
+    nq = qall if plain_q is None else plain_q
+    sel = torch.cat([torch.arange(nq // 2), torch.arange(qall - (nq - nq // 2), qall)]
+                    ).to(q.device)
+    q, q_in, mult, qn2, step = q[sel], q_in[sel], mult[sel], qn2[sel], step[sel]
     pp = exact_ops.exact_pool_packed_plain(
-        q_in[:nq].contiguous(), x, aux, mult[:nq].contiguous(),
-        qn2[:nq].contiguous(), **geom
+        q_in.contiguous(), x, aux, mult.contiguous(), qn2.contiguous(), **geom
     )
     torch.cuda.synchronize()
-    k = kp[:nq]
+    k = kp[sel]
     live = torch.isfinite(pp)
     if not torch.equal(live, torch.isfinite(k)):
         raise AssertionError(f"{case['name']}: dead bins differ")
+    if "dead_cols" in case:
+        lo, hi = case["dead_cols"]
+        if live[:, lo:hi].any() or not live.any():
+            raise AssertionError(f"{case['name']}: a dead pool group has live bins")
     f = geom["slot_f"]
     kl = torch.floor(torch.where(live, k, 0.0) / f)
     pl = torch.floor(torch.where(live, pp, 0.0) / f)
@@ -649,29 +707,29 @@ def _check_packed(case, exact_ops, traversal_ops, *, plain_q=None, tile_n=None,
             raise AssertionError(
                 f"{case['name']}: a differing slot is {worst} levels off the winner"
             )
-    max_err = float(((kl - pl).abs() * step[:nq, None]).max())
+    max_err = float(((kl - pl).abs() * step[:, None]).max())
     # stage 2 + decode + finalize on both planes
     ef, kk = 64, 10
     finals = []
     for plane in (k, pp):
         pv, pos = torch.topk(plane, ef, dim=1)
         s, r = exact_ops.decode_packed_pool(
-            pv, pos, step[:nq], q[:nq], metric, d=q.shape[1], n=x.shape[0],
-            qn=q.shape[0], tile_n=tile_n, fold=fold, min_w=16384,
+            pv, pos, step, q, metric, d=q.shape[1], n=x.shape[0],
+            qn=qall, tile_n=tile_n, fold=fold, min_w=16384,
         )
-        finals.append(traversal_ops.exact_finalize(q[:nq], s, r, kk, metric))
+        finals.append(traversal_ops.exact_finalize(q, s, r, kk, metric))
     (k_s, _kd, k_i), (p_s, _pd, p_i) = finals
     # final scores are -distance (L2, one step = step) or the similarity
     # (cosine, one step = step / ||q||)
-    tol = 2 * step[:nq]
+    tol = 2 * step
     if metric == "COSINE":
-        tol = tol / torch.clamp(q[:nq].norm(dim=1), min=1e-30)
+        tol = tol / torch.clamp(q.norm(dim=1), min=1e-30)
     near = _near_ties(p_s, tol[:, None])
     mismatch = int(((k_i != p_i) & ~near).sum())
     if mismatch:
         raise AssertionError(f"{case['name']}: {mismatch} final top-k ids differ")
     report = (
-        f"{case['name']}: {form} form, Q={q.shape[0]} (plain over {nq}) N={x.shape[0]} "
+        f"{case['name']}: {form} form, Q={qall} (plain over {nq}) N={x.shape[0]} "
         f"d_live={geom['d_live']} W={geom['w']} tile={geom['tile']} "
         f"fold={geom['fold']} F={int(f)} "
         f"max_level_diff={level_diff} slot_differs={int(differ.sum())}/"
@@ -2346,6 +2404,55 @@ def _packed_timings(exact_ops, peaks, tag, pipe_regs):
     return out
 
 
+def _wide_timings(exact_ops, peaks, tag):
+    """B2's wide form at cohere10m.batch512's two groups (Q 512 x N
+    8,000,512 and 2,000,128, 768 features, COSINE, fold 8; the form each
+    launch took from the registry's counter), torch.matmul of the same
+    product, and the bound: bytes (x, both column terms, q and the
+    per-query terms read once, the packed plane written once) over the
+    memory rate, or three split-bf16 passes of the product over the bf16
+    tensor-core rate; beside it the bytes alone and the 3xTF32 ceiling."""
+    import torch
+
+    from vectorsearch_torch.utils.metrics import get_registry
+
+    out = {}
+    for segs in (8, 2):
+        case = _cohere_case(f"cohere {segs}", segs, "COSINE", seed=40 + segs)
+        q, x, valid = case["q"], case["x"], case["valid"]
+        q_in, aux, mult, qn2, _step, geom = exact_ops.packed_pool_inputs(
+            q, x, valid, "COSINE")
+        before = _packed_forms(exact_ops, get_registry())
+        ms = _time_ms(lambda: exact_ops.exact_pool_packed_cuda(
+            q_in, x, aux, mult, qn2, **geom), 5 if segs == 8 else 10)
+        form = _form_taken(before, _packed_forms(exact_ops, get_registry()))
+        if form != "wide":
+            raise AssertionError(f"B2 at Cohere10M's {segs}-segment group: {form} form")
+        lib = _time_ms(lambda: torch.matmul(q_in, x.T), 3, 1)
+        (qn, d), n, w = q_in.shape, x.shape[0], geom["w"]
+        nbytes = n * d * 4 + 2 * n * 4 + qn * d * 4 + qn * 8 + qn * w * 4
+        flops = 2 * qn * n * d
+        bytes_ms = nbytes / peaks["bytes_s"] * 1e3
+        ops_ms = 3 * flops / peaks["bf16"] * 1e3
+        tf32_ms = 3 * flops / peaks["tf32"] * 1e3
+        _log(f"timing exact_pool_packed {tag}: Cohere10M {segs}-segment group, "
+             f"Q {qn} x N {n:,} x D {d} (COSINE, fold {geom['fold']}, W {w:,}): "
+             f"kernel ({form} form) {ms:.3f} ms ({flops / ms / 1e9:.1f} useful "
+             f"TFLOP/s), torch.matmul {lib:.3f} ms, bound "
+             f"{max(bytes_ms, ops_ms):.3f} ms (operations {ops_ms:.3f} ms as 3 "
+             f"split-bf16 passes of {flops / 1e12:.3f} TFLOP, bytes "
+             f"{bytes_ms:.3f} ms: {nbytes / 1e9:.2f} GB), 3xTF32 ceiling "
+             f"{tf32_ms:.3f} ms")
+        key = f"_cohere_{segs}seg"
+        out.update({f"ms{key}": ms, f"library_ms{key}": lib,
+                    f"bound_ms{key}": max(bytes_ms, ops_ms),
+                    f"bytes_ms{key}": bytes_ms, f"tf32_ceiling_ms{key}": tf32_ms,
+                    f"form{key}": form})
+        del case, q, x, valid, q_in, aux
+        torch.cuda.empty_cache()
+    return out
+
+
 def _wide_feed(exact_ops, q_in, x, aux, geom):
     """(ms, bytes) of the copy-only variant of B1's wide form (L2): its
     ring fed as the kernel feeds it (each stage a 128-row box of x and the
@@ -2518,13 +2625,14 @@ def main() -> int:
     if not built["exact_pool_tc"][1]:
         _log(f"  ptxas {tag}: exact_pool_tc was built before this run, "
              "no ptxas lines to check")
-    elif ("B1 wide" not in pipe_regs or len(pipe_regs) < 2
+    elif ("B1 wide" not in pipe_regs or "B2 wide" not in pipe_regs
+          or len(pipe_regs) < 3
           or any(sp != 0 or r != 168 for r, sp in pipe_regs.values())):
         raise AssertionError(
-            f"B2 pipelined / B1 wide: spills, registers other than 168 or no "
-            f"instantiation: {pipe_regs}")
+            f"B2 pipelined / B1 and B2 wide: spills, registers other than 168 "
+            f"or no instantiation: {pipe_regs}")
     # B1 and B2 run on the tensor cores: warpgroup MMA in each instantiation
-    # of their forms (B1 narrow, B1 wide, B2 pipelined)
+    # of their forms (B1 narrow, B1 wide, B2 pipelined, B2 wide)
     mmas = _warpgroup_mmas(built["exact_pool_tc"][0], "exact_pool_")
     for fn, n in sorted(mmas.items()):
         _log(f"sass {tag}: {fn}: {n} HGMMA")
@@ -2595,6 +2703,15 @@ def main() -> int:
                        alive_frac=0.98), dict(tile_n=512, fold=2)),
         (lambda: _deep_case("Deep10M 2-segment group, 96 live features (L2)",
                             2, seed=24), dict(d_live=96)),
+        # cohere10m.batch512's groups, 768 features: B2's wide form
+        (lambda: _cohere_case("Cohere10M 8-segment group (COSINE)", 8,
+                              "COSINE", seed=25), dict(plain_q=64)),
+        (lambda: _cohere_case("Cohere10M 8-segment group (L2)", 8, "L2",
+                              seed=26), dict(plain_q=64)),
+        (lambda: _cohere_case("Cohere10M 2-segment group, Q 200 (COSINE)", 2,
+                              "COSINE", seed=27, qn=200), {}),
+        (lambda: _cohere_case("Cohere10M 2-segment group, Q 200 (L2)", 2,
+                              "L2", seed=28, qn=200), {}),
     ]
     for make, kw in packed_cases:
         err, level, report = _check_packed(make(), exact_ops, traversal_ops, **kw)
@@ -2602,8 +2719,11 @@ def main() -> int:
         max_level_diff = max(max_level_diff, level)
         _log(f"kernel vs plain {tag}: packed {report}")
         torch.cuda.empty_cache()
-    # B2's timings at the Deep10M subgroups' shapes (in the kernels line)
+    # B2's timings at the Deep10M and Cohere10M subgroups' shapes (in the
+    # kernels line)
     packed_times = _packed_timings(exact_ops, peaks, tag, pipe_regs)
+    torch.cuda.empty_cache()
+    packed_times.update(_wide_timings(exact_ops, peaks, tag))
     torch.cuda.empty_cache()
     adc_cases = [
         _adc_case("ADC sift1m segment", 100_096, seed=11, pad_from=100_000),

@@ -239,7 +239,7 @@ def test_kernel_distances_hold_float32_at_gist_rows(cuda):
     # columns)
     (50_123, None, None, 100, None, 100, None, "pipelined"),
     (20_123, None, None, 99, None, 40, None, "pipelined"),
-    # rows too wide for resident planes: B1's wide form at fold 1, packed
+    # rows too wide for resident planes: B2's wide form
     (20_123, None, None, 3072, None, 100, None, "wide"),
     # a published embedding width past the planes (768 live of 768, Q 512)
     (50_123, None, None, 768, None, 512, None, "wide"),
@@ -299,42 +299,78 @@ def test_packed_kernel_matches_plain(cuda, rng, metric, n, tile, fold, d,
     assert (kp[live] == np.round(kp[live])).all()
 
 
-@pytest.mark.parametrize("metric", ["COSINE", "L2"])
-def test_wide_route_at_a_text_embedding_group_equals_plain(cuda, metric):
-    """B2's wide route at the 2-segment group of a 1M-row-segment corpus of
-    768 features (2,000,128 rows, Q 512: one pass of B1 at fold 1, then
-    ``pack_tiles``) gives ``exact_pool_packed_plain``'s plane bit for bit.
-    The features are small integers, so every product is exact in both
-    (3xTF32 on the tensor cores, full f32 in the plain version), and so is
-    every bin's winner (the smallest row on a tie). A zero row, rows left
-    out, a pool group's rows all left out (its bins dead); one
-    ``wide_pass`` span, and a ``PackTimer`` reads the pack's device time."""
-    n, d, qn = 2_000_128, 768, 512
-    g = torch.Generator(device="cuda").manual_seed(768)
-    x = torch.randint(-8, 9, (n, d), generator=g, device="cuda").float()
-    q = torch.randint(-8, 9, (qn, d), generator=g, device="cuda").float()
+def _text_embedding_group(qn, integers, seed):
+    """The 2-segment group of a 1M-row-segment corpus of 768 features
+    (2,000,128 rows) and qn queries on the card: small integer features or
+    Gaussian ones, a zero row, a tenth of the rows left out and the second
+    pool group's rows all left out (its bins dead)."""
+    n, d = 2_000_128, 768
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if integers:
+        x = torch.randint(-8, 9, (n, d), generator=g, device="cuda").float()
+        q = torch.randint(-8, 9, (qn, d), generator=g, device="cuda").float()
+    else:
+        x = torch.randn((n, d), generator=g, device="cuda")
+        q = torch.randn((qn, d), generator=g, device="cuda")
     x[7] = 0.0
     valid = torch.rand(n, generator=g, device="cuda") > 0.1
     valid[8 * 1024:2 * 8 * 1024] = False  # the second pool group
+    return q, x, valid
+
+
+@pytest.mark.parametrize("metric", ["COSINE", "L2"])
+@pytest.mark.parametrize("qn", [512, 200])
+def test_wide_route_at_a_text_embedding_group_equals_plain(cuda, metric, qn):
+    """B2's wide form at the 2-segment group of a 1M-row-segment corpus of
+    768 features (2,000,128 rows; Q 512, and Q 200, whose last query tile
+    holds 8 queries) gives ``exact_pool_packed_plain``'s plane bit for bit:
+    one launch of all the queries, one ``wide_pass`` span with all of them.
+    The features are small integers, so every product is exact in both
+    (3xTF32 on the tensor cores, full f32 in the plain version), and so is
+    every bin's winner (the smallest row on a tie). A zero row, rows left
+    out, a pool group's rows all left out (its bins dead)."""
+    q, x, valid = _text_embedding_group(qn, True, 768 + qn)
+    n = x.shape[0]
     q_in, aux, mult, qn2, _step, geom = te.packed_pool_inputs(q, x, valid, metric)
     assert (geom["tile"], geom["fold"], geom["w"]) == (1024, 8, 245 * 128)
     registry = get_registry()
     s0 = max((r.seq for r in registry.spans().records), default=-1)
     wide = registry.counter_value(te.PACKED_LAUNCHES, {"form": "wide"})
-    packs = []
-    timer = te.PackTimer(lambda name, ms: packs.append((name, ms)))
-    kp = te.exact_pool_packed_cuda(q_in, x, aux, mult, qn2, **geom, packs=timer)
+    b1 = te.exact_pool_cuda.launches
+    kp = te.exact_pool_packed_cuda(q_in, x, aux, mult, qn2, **geom)
     pp = te.exact_pool_packed_plain(q_in, x, aux, mult, qn2, **geom)
     torch.cuda.synchronize()
     assert registry.counter_value(te.PACKED_LAUNCHES, {"form": "wide"}) == wide + 1
+    assert te.exact_pool_cuda.launches == b1
     assert torch.equal(kp, pp)
     live = torch.isfinite(pp)
     assert live.any() and not live[:, 128:256].any()
     passes = [r.attrs for r in registry.spans().records
               if r.seq > s0 and r.name == te.WIDE_PASS]
     assert passes == [{"queries": qn, "rows": n}]
-    timer.finish()
-    assert [p[0] for p in packs] == [te.PACK_MS] and packs[0][1] > 0
+
+
+@pytest.mark.parametrize("metric", ["COSINE", "L2"])
+@pytest.mark.parametrize("qn", [512, 200])
+def test_wide_form_equals_the_fold_1_route_on_float_rows(cuda, metric, qn):
+    """On Gaussian rows, where the tensor cores' 3xTF32 sums differ from
+    full f32, B2's wide form gives the plane of the route it replaced bit
+    for bit: B1's wide form at fold 1 over all the queries, its two planes
+    packed by ``pack_tiles`` (the same mainloop arithmetic, and IEEE single
+    sqrt, products and round-half-even on both sides)."""
+    q, x, valid = _text_embedding_group(qn, False, 769 + qn)
+    q_in, aux, mult, qn2, _step, geom = te.packed_pool_inputs(q, x, valid, metric)
+    kp = te.exact_pool_packed_cuda(q_in, x, aux, mult, qn2, **geom)
+    w1 = -(-x.shape[0] // geom["tile"]) * geom["bins"]
+    m, rows = te.exact_pool_cuda(q_in, x, aux, metric=metric, tile=geom["tile"],
+                                 bins=geom["bins"], fold=1, w=w1)
+    route = te.pack_tiles(m, rows, mult, qn2, metric=metric, tile=geom["tile"],
+                          bins=geom["bins"], fold=geom["fold"], w=geom["w"],
+                          slot_f=geom["slot_f"])
+    torch.cuda.synchronize()
+    assert torch.equal(kp, route)
+    live = torch.isfinite(kp)
+    assert live.any() and not live[:, 128:256].any()
 
 
 def test_kernel_rejects_too_many_row_slices(cuda, rng):
@@ -387,21 +423,29 @@ def test_packed_wrapper_rejects_more_column_blocks_than_a_grid_holds(cuda):
     assert bool((ki[:, :128] >= 0).all())
 
 
-@pytest.mark.parametrize("qn,d_live,floats", [
-    (512, 128, 0), (512, 96, 0), (1, 100, 0),
+@pytest.mark.parametrize("qn,d_live,packed,form,floats", [
+    (512, 128, False, "resident", 0), (512, 96, False, "resident", 0),
+    (1, 100, False, "resident", 0),
     # rows over 128 live features take the wide form's scratch: two planes
     # of 64 queries x 32 features a query tile and a chunk
-    (512, 960, 8 * 960 * 128), (1, 129, 160 * 128), (65, 1000, 2 * 1024 * 128),
-    (513, 960, 9 * 960 * 128), (64, 960, 960 * 128),
+    (512, 960, False, "pipelined", 8 * 960 * 128),
+    (1, 129, False, "pipelined", 160 * 128),
+    (65, 1000, False, "pipelined", 2 * 1024 * 128),
+    (513, 960, False, "pipelined", 9 * 960 * 128),
+    (64, 960, False, "pipelined", 960 * 128),
+    # B2: its pipelined form where its planes fit (none), else its wide
+    # form, with B1's wide form's scratch (Cohere10M's batch: 3.1 MB)
+    (512, 96, True, "pipelined", 0), (512, 704, True, "pipelined", 0),
+    (512, 768, True, "wide", 8 * 768 * 128), (200, 768, True, "wide", 4 * 768 * 128),
 ])
-def test_wide_form_scratch_size(cuda, qn, d_live, floats):
-    """The query planes' scratch the wrapper hands B1's wide form, as
-    csrc's exact_pool_plan sizes it (wide_plane_floats): 3.9 MB at GIST1M's
-    batch, none on rows of up to 128 live features."""
+def test_wide_form_scratch_size(cuda, qn, d_live, packed, form, floats):
+    """The query planes' scratch the wrapper hands B1's and B2's wide forms,
+    as csrc's exact_pool_plan sizes it (wide_plane_floats): 3.9 MB at
+    GIST1M's batch, none on rows of up to 128 live features or on B2's
+    pipelined form."""
     lib = te.cuda_build.load("exact_pool_tc", te._bind_tc)
     d = -(-d_live // 32) * 32
-    form = "resident" if d_live <= 128 else "pipelined"
-    assert te._plan(lib, "test", qn, d, d_live, 128, packed=False)[::2] == (
+    assert te._plan(lib, "test", qn, d, d_live, 128, packed=packed)[::2] == (
         form, floats)
 
 

@@ -28,7 +28,10 @@ import vectorsearch_torch as tvs
 from vectorsearch_tpu.ops.pallas import exact as pe
 from vectorsearch_torch.ops import exact as te
 
+from vectorsearch_torch.utils.metrics import get_registry
+
 from tests.test_torch_index import SEG, _assert_same, _blocked, _open, _populate
+from tests.test_torch_text_embedding import wide_form_stand_in
 
 
 def _bf16(a):
@@ -542,19 +545,57 @@ def test_index_passes_its_logical_dimension_to_the_packed_route(rng, monkeypatch
     assert (got[:, 0] == np.asarray(gids)[d.argmin(axis=1)]).all()
 
 
+def _wide_form_model(s, mult, qn2, *, metric, tile, bins, fold, w, slot_f):
+    """The packed plane as B2's wide form (csrc/exact_pool_tc.cu's
+    exact_pool_wide_kernel<true>) computes it from the scores s f32[Q, N]:
+    each group's row slices in ascending order, a bin's best of the tile and
+    its slice in the tile kept on `>`; at a tile's last slice (or the
+    group's last live one) the best compressed once into
+    rint(v * mult) * F + (the tile's first slice in the group + the slot),
+    in float32, and merged into the plane by max, the first tile
+    overwriting it; the tile's best then starts afresh at -inf."""
+    qn, n = s.shape
+    per, inf = tile // bins, float("-inf")
+    out = torch.full((qn, w), inf)
+    for g in range(w // bins):
+        plane = None
+        for j in range(fold):
+            best = torch.full((qn, bins), inf)
+            slot = torch.zeros((qn, bins), dtype=torch.int64)
+            ran = False
+            for a in range(per):
+                r0 = ((g * fold + j) * per + a) * bins
+                if r0 >= n:
+                    break
+                sc = torch.full((qn, bins), inf)
+                sc[:, :min(bins, n - r0)] = s[:, r0:r0 + bins]
+                up = sc > best
+                best, slot = torch.where(up, sc, best), torch.where(up, a, slot)
+                ran = True
+            if not ran:
+                break
+            if metric == "COSINE":
+                v = best
+            else:
+                v = -torch.sqrt(torch.clamp(qn2[:, None] - best, min=0.0))
+            p = torch.round(v * mult[:, None]) * slot_f + (j * per + slot).float()
+            plane = p if plane is None else torch.where(p > plane, p, plane)
+        if plane is not None:
+            out[:, g * bins:(g + 1) * bins] = plane
+    return out
+
+
 @pytest.mark.parametrize("metric", ["L2", "COSINE"])
 @pytest.mark.parametrize("fold", [1, 2, 8])
-@pytest.mark.parametrize("blocked", [False, True])
-def test_packed_wide_route_equals_the_plain_pool(monkeypatch, metric, fold,
-                                                 blocked):
-    """B2's wide route (B1 at fold 1, then pack_tiles, over blocks of
-    queries), with exact_pool_plain standing in for B1's kernel, gives
-    exact_pool_packed_plain's plane bit for bit: a ragged last tile, a
-    group whose rows are all invalid (dead bins), and, blocked, a byte
-    bound that splits the 13 queries into blocks of 4, 4, 4 and 1. The
-    features are small integers, so every product is exact in f32 whatever
-    rows a block holds."""
-    rng = np.random.default_rng(100 * fold + blocked)
+def test_packed_wide_route_equals_the_plain_pool(metric, fold):
+    """B2's wide form's packing, slice by slice as the kernel walks a group
+    (``_wide_form_model``), gives exact_pool_packed_plain's plane bit for
+    bit, and so does the route the wide form replaced (B1's pool at fold 1,
+    then pack_tiles): a ragged last tile, a zero row, rows left out and a
+    group whose rows are all left out (dead bins). The features are small
+    integers, so every score is exact and ties are many: the smallest slice
+    of a tile wins one, and of two tiles on one level the higher slot."""
+    rng = np.random.default_rng(100 * fold)
     n, d, qn, tile = 17 * 512 + 77, 24, 13, 512
     x = rng.integers(-8, 9, size=(n, d)).astype(np.float32)
     q = rng.integers(-8, 9, size=(qn, d)).astype(np.float32)
@@ -564,20 +605,59 @@ def test_packed_wide_route_equals_the_plain_pool(monkeypatch, metric, fold,
     args = [torch.from_numpy(a) for a in (q, x, valid)]
     q_in, aux, mult, qn2, _step, geom = te.packed_pool_inputs(
         *args, metric=metric, tile_n=tile, fold=fold)
-    w1 = -(-n // tile) * geom["bins"]
-    calls = []
-
-    def b1(q_blk, *a, **kw):
-        calls.append((q_blk.shape[0], kw["fold"], kw["w"], kw["d_live"]))
-        return te.exact_pool_plain(q_blk, *a, **kw)
-
-    monkeypatch.setattr(te, "exact_pool_cuda", b1)
-    if blocked:
-        monkeypatch.setattr(te, "_PACK_BLOCK_BYTES", 4 * 8 * w1 + 7)
-    got = te._packed_wide_route(q_in, args[1], aux, mult, qn2, **geom)
     want = te.exact_pool_packed_plain(q_in, args[1], aux, mult, qn2, **geom)
+    cross = q_in @ args[1].T
+    s = cross * aux[0] + aux[1] if metric == "COSINE" else cross - aux[0]
+    got = _wide_form_model(s, mult, qn2, metric=metric, tile=tile,
+                           bins=geom["bins"], fold=fold, w=geom["w"],
+                           slot_f=geom["slot_f"])
     assert torch.equal(got, want)
-    assert [c[0] for c in calls] == ([4, 4, 4, 1] if blocked else [qn])
-    assert all(c[1:] == (1, w1, d) for c in calls)
+    w1 = -(-n // tile) * geom["bins"]
+    m, rows = te.exact_pool_plain(q_in, args[1], aux, metric=metric, tile=tile,
+                                  bins=geom["bins"], fold=1, w=w1)
+    assert torch.equal(te.pack_tiles(m, rows, mult, qn2, metric=metric, tile=tile,
+                                     bins=geom["bins"], fold=fold, w=geom["w"],
+                                     slot_f=geom["slot_f"]), want)
     live = torch.isfinite(want)
     assert not live.all() and live.any()
+
+
+@pytest.mark.parametrize("metric", ["L2", "COSINE"])
+@pytest.mark.parametrize("qn", [1, 13, 134, 512])
+def test_packed_wide_form_is_one_launch_of_all_queries(monkeypatch, metric, qn):
+    """exact_pool_packed_cuda where csrc's plan picks B2's wide form (a
+    stand-in library whose exact_pool_plan returns FORM_WIDE, its launch
+    writing the plain plane): one launch of all Q queries at the pool's own
+    fold, with the query planes' scratch the plan reports; no launch of B1;
+    one ``wide_pass`` span with the call's
+    queries and rows, one ``PACKED_LAUNCHES`` count of form ``wide``; the
+    plane returned is the one the launch wrote."""
+    rng = np.random.default_rng(qn)
+    n, d = 3 * 8 * 512 + 77, 40
+    x = rng.integers(-8, 9, size=(n, d)).astype(np.float32)
+    q = rng.integers(-8, 9, size=(qn, d)).astype(np.float32)
+    valid = rng.random(n) > 0.1
+    args = [torch.from_numpy(a) for a in (q, x, valid)]
+    q_in, aux, mult, qn2, _step, geom = te.packed_pool_inputs(
+        *args, metric=metric, tile_n=512, fold=8)
+    want = te.exact_pool_packed_plain(q_in, args[1], aux, mult, qn2, **geom)
+    lib = wide_form_stand_in(monkeypatch)
+
+    def no_b1(*a, **k):
+        raise AssertionError("B1 was launched")
+
+    monkeypatch.setattr(te, "exact_pool_cuda", no_b1)
+    reg = get_registry()
+    s0 = max((r.seq for r in reg.spans().records), default=-1)
+    wide0 = reg.counter_value(te.PACKED_LAUNCHES, {"form": "wide"})
+    calls0 = te.exact_pool_packed_cuda.launches
+    got = te.exact_pool_packed_cuda(q_in, args[1], aux, mult, qn2, **geom)
+    assert torch.equal(got, want)
+    assert lib.plans == [(qn, d, d, geom["w"], 1)]
+    assert lib.launches == [dict(qn=qn, n=n, d=d, d_live=d, fold=8, w=geom["w"],
+                                 planes=True,
+                                 qplane_floats=lib.scratch(qn, d))]
+    assert [r.attrs for r in reg.spans().records
+            if r.seq > s0 and r.name == te.WIDE_PASS] == [{"queries": qn, "rows": n}]
+    assert reg.counter_value(te.PACKED_LAUNCHES, {"form": "wide"}) == wide0 + 1
+    assert te.exact_pool_packed_cuda.launches == calls0 + 1

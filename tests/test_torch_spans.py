@@ -269,3 +269,16 @@ def test_a_sampled_batch_takes_no_device_sync(rng, monkeypatch):
     assert get_registry().histogram_values("vectorsearch.query.rerank_ms")
     assert n_sync == []
     idx.close()
+
+
+def test_device_marks_on_the_cpu_read_the_host_clock():
+    """On the CPU a device mark is the host clock: the milliseconds from
+    one mark to a later one cover the work between them, and a mark to
+    itself reads 0 (the sampled breakdowns' phases take their times so)."""
+    cpu = torch.device("cpu")
+    a = metrics.device_mark(cpu)
+    time.sleep(0.02)
+    b = metrics.device_mark(cpu)
+    assert isinstance(a, float) and isinstance(b, float)
+    assert 19.0 <= metrics.elapsed_ms(a, b) < 10_000.0
+    assert metrics.elapsed_ms(b, b) == 0.0

@@ -11,9 +11,9 @@ and ``_PACKED_MIN_ROWS`` lowered, the power-of-two subgroup of two
 segments (8,448 rows) takes B2's packed pool, whose cosine score is
 quantized, and the singleton takes B1's two-plane pool (their plain forms
 on the CPU). On the card, at 768 features and 512 queries, the packed pool
-is B2's wide route: B1 at fold 1 over blocks of queries, then
-``pack_tiles``; it is driven here through the index with B1's plain form
-in the kernel's place.
+is B2's wide form: one launch of all the queries, B1's wide mainloop with
+B2's tile epilogue; its wrapper is driven here through the index with a
+stand-in library (``WideFormLib``) in the kernel's place.
 
 Tolerances:
 - distances, absolute: half the packed plane's step plus 5e-7. B2 packs
@@ -39,6 +39,7 @@ Tolerances:
   or a zero query has similarity 0, so distance 1, exactly.
 """
 
+import ctypes
 import json
 import os
 
@@ -100,6 +101,64 @@ def _open(monkeypatch, **index):
     return tvs.VectorIndex.create_or_open(tvs.VectorIndexConfig(
         storage=tvs.MemoryStorage(), name="cohere", device="cpu",
         **dict(_config()["index"], max_segment_size=SEG, **index)))
+
+
+class WideFormLib:
+    """A stand-in for the exact pools' library (``ops/exact.py::_bind_tc``'s)
+    in which every packed launch takes B2's wide form: ``exact_pool_plan``
+    returns FORM_WIDE with csrc's query tile (64) and scratch
+    (wide_plane_floats: two planes of 64 queries x 32 features a query tile
+    and a 32-feature chunk), and ``exact_pool_packed_launch`` reads its
+    inputs from the pointers it is handed, as the kernel does, and writes
+    ``exact_pool_packed_plain``'s plane (the function as it was when the
+    stand-in was made) into the output. Every plan and launch is kept."""
+
+    FORM_WIDE = 2  # csrc's enum Form
+
+    def __init__(self):
+        self.plain = te.exact_pool_packed_plain
+        self.plans, self.launches = [], []
+
+    @staticmethod
+    def scratch(qn, d_live):
+        return -(-qn // 64) * -(-d_live // 32) * 2 * 64 * 32
+
+    def exact_pool_plan(self, qn, d, d_live, w, packed, tile, scratch):
+        self.plans.append((qn, d, d_live, w, packed))
+        tile._obj.value, scratch._obj.value = 64, self.scratch(qn, d_live)
+        return self.FORM_WIDE
+
+    def exact_pool_packed_launch(self, q, x, aux0, aux1, mult, qn2, out, qn, n,
+                                 d, d_live, tile, bins, fold, w, cosine,
+                                 slot_f, qplanes, qplane_floats, stream):
+        def floats(ptr, count, *shape):
+            arr = (ctypes.c_float * count).from_address(ptr)
+            return torch.from_numpy(np.ctypeslib.as_array(arr)).view(*shape)
+
+        self.launches.append(dict(qn=qn, n=n, d=d, d_live=d_live, fold=fold, w=w,
+                                  planes=qplanes is not None,
+                                  qplane_floats=qplane_floats))
+        aux = [floats(aux0, n, n)] + ([floats(aux1, n, n)] if cosine else [])
+        plane = self.plain(
+            floats(q, qn * d, qn, d), floats(x, n * d, n, d), torch.stack(aux),
+            floats(mult, qn, qn), floats(qn2, qn, qn),
+            metric="COSINE" if cosine else "L2", tile=tile, bins=bins,
+            fold=fold, w=w, slot_f=slot_f)
+        floats(out, qn * w, qn, w).copy_(plane)
+        return 0
+
+
+def wide_form_stand_in(monkeypatch) -> WideFormLib:
+    """Puts a ``WideFormLib`` in the kernel library's place for
+    ``exact_pool_packed_cuda`` on CPU tensors: the library's loader returns
+    it, the launch runs with no CUDA device or stream, and the tensors'
+    checks (whose first is that they lie on the card; the card's tests hold
+    them) are left out."""
+    lib = WideFormLib()
+    monkeypatch.setattr(te.cuda_build, "load", lambda name, bind: lib)
+    monkeypatch.setattr(te, "_launch", lambda who, dev, fn, *args: fn(*args, None))
+    monkeypatch.setattr(te, "_check_kernel_args", lambda *a, **k: None)
+    return lib
 
 
 def _build(idx, rows):
@@ -231,80 +290,49 @@ def test_tf32_products_fail_the_distance_tolerance():
 
 
 def test_wide_route_through_the_index(monkeypatch):
-    """B2's wide route reached from the index, B1's plain form in the
-    kernel's place, over six segments (subgroups of four and two, both
-    packed): blocks of queries small enough to split the batch give the
-    answers one block gives, one ``wide_pass`` span a block with the
-    block's queries and the group's rows; on sampled batches the packs'
-    time of both calls is recorded once a batch, from the shapes' second
-    sampled dispatch on."""
+    """B2's wide form reached from the index through its wrapper, a
+    ``WideFormLib`` in the kernel library's place, over six segments
+    (subgroups of four and two, both packed): each call is one launch of
+    all the batch's queries with the scratch its plan reports, one
+    ``wide_pass`` span a call with the batch's queries and the group's
+    rows, on unsampled and sampled batches alike; the answers are the plain
+    route's, bit for bit."""
     rows, q = _cohere_like(6 * SEG, NQ, 2**31 + 771)
-    monkeypatch.setattr(te, "exact_pool_cuda", te.exact_pool_plain)
-    monkeypatch.setattr(te, "exact_pool_packed_plain", te._packed_wide_route)
     idx = _open(monkeypatch, query_breakdown_sample_every=1)
     reg = get_registry()
-    packs0 = len(reg.histogram_values(te.PACK_MS))
 
     def last_seq():
         return max((r.seq for r in reg.spans().records), default=-1)
 
-    # fold-1 planes of 17 and 9 tiles of 1,024 rows (16,896 and 8,448 rows),
-    # 128 bins each; the bound below takes 20 and 37 queries a block
-    w4, w2 = 17 * 128, 9 * 128
+    groups = (4 * 4_224, 2 * 4_224)
     try:
         gids = np.asarray(idx.add_all(rows), np.int64)
         for sid in range(6):
             idx.build_service.build(sid)
         runs = []
-        # batch 0 (never sampled) in one block a group; batches 1 (the
-        # shapes' first sampled one) and 2 in smaller blocks
-        for block_bytes in (None, 20 * 8 * w4 + 3, None):
-            if block_bytes is not None:
-                monkeypatch.setattr(te, "_PACK_BLOCK_BYTES", block_bytes)
-            s0 = last_seq()
-            runs.append(idx.query_batch_arrays(q, K))
-            runs[-1] += ([r.attrs for r in reg.spans().records
-                          if r.seq > s0 and r.name == te.WIDE_PASS],)
-            if len(runs) == 2:
-                assert len(reg.histogram_values(te.PACK_MS)) == packs0
+        with monkeypatch.context() as m:
+            lib = wide_form_stand_in(m)
+            m.setattr(te, "exact_pool_packed_plain", te.exact_pool_packed_cuda)
+            # batch 0 (never sampled), 1 (the shapes' first sampled one) and
+            # 2 (sampled, recording)
+            for _ in range(3):
+                s0 = last_seq()
+                runs.append(idx.query_batch_arrays(q, K))
+                runs[-1] += ([r.attrs for r in reg.spans().records
+                              if r.seq > s0 and r.name == te.WIDE_PASS],)
+        plain = idx.query_batch_arrays(q, K)
     finally:
         idx.close()
-    one, split, again = runs
-    # the same rows; the scores within one step of the packed plane (the
-    # plain product of a smaller block may sum in another order, a unit of
-    # float32 that can move a level by one)
-    step = 1.0 / te._packed_steps(1024, 128, 1)[1]
-    for r in (split, again):
-        np.testing.assert_array_equal(r[0], one[0])
-        np.testing.assert_allclose(r[1], one[1], rtol=0, atol=step * 1.01)
-    assert one[3] == [{"queries": NQ, "rows": 4 * 4_224},
-                      {"queries": NQ, "rows": 2 * 4_224}]
-    blocks = [(n, 4 * 4_224) for n in (20, 20, 20, 4)] + [
-        (n, 2 * 4_224) for n in (37, 27)]
-    for r in (split, again):
-        assert r[3] == [{"queries": n, "rows": m} for n, m in blocks]
-    packs = reg.histogram_values(te.PACK_MS)[packs0:]
-    assert len(packs) == 1 and packs[0] > 0
+    for r in runs:
+        np.testing.assert_array_equal(r[0], plain[0])
+        np.testing.assert_array_equal(r[1], plain[1])
+        assert r[3] == [{"queries": NQ, "rows": n} for n in groups]
+    assert [(c["qn"], c["n"], c["fold"]) for c in lib.launches] == [
+        (NQ, n, 1) for n in groups] * 3
+    assert all(c["planes"] and c["qplane_floats"] == lib.scratch(NQ, 768)
+               for c in lib.launches)
     # the answers are the reference's (the nearest row of each query)
     log = knn.Log.build(gids, rows)
     ref_g, _d = knn.topk_certain(log, q, np.zeros(NQ), np.zeros(NQ), 1, "cpu",
                                  metric="COSINE")
-    assert (one[0][:, 0] == ref_g[:, 0]).mean() > 0.95
-
-
-def test_pack_timer_sums_the_packs_and_records_once():
-    """A PackTimer records the sum of its packs' times once, and nothing
-    where it has no record or timed no pack."""
-    got = []
-    pt = te.PackTimer(lambda name, ms: got.append((name, ms)))
-    for _ in range(3):
-        with pt.around(torch.device("cpu")):
-            sum(range(10_000))
-    pt.finish()
-    assert [n for n, _ms in got] == [te.PACK_MS] and got[0][1] > 0
-    quiet = te.PackTimer(None)
-    with quiet.around(torch.device("cpu")):
-        pass
-    quiet.finish()
-    te.PackTimer(lambda *a: got.append(a)).finish()
-    assert len(got) == 1
+    assert (plain[0][:, 0] == ref_g[:, 0]).mean() > 0.95

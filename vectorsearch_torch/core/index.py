@@ -55,11 +55,8 @@ host records ``vectorsearch.query.pq_scan_ms``, ``graph_traversal_ms``
 (0.0 for flat and exact) and ``rerank_ms`` once a segment, a call shared
 by n segments giving each an n-th of its time; the first sampled dispatch
 of each shape records nothing (it pays first-use costs: lazy kernel
-builds, first launches, uploads). On the same batches each exact pool call
-(per segment and per subgroup) times the packs its packed pool runs outside
-a kernel (B2's wide route: ``exact_ops.PackTimer``), recorded as the
-histogram ``vectorsearch.exact_pool.pack_ms``, their sum, once a batch. A
-sampled batch runs the fused route and adds no device synchronisation.
+builds, first launches, uploads). A sampled batch runs the fused route and
+adds no device synchronisation.
 
 The async facade (``*_async``) returns ``concurrent.futures.Future``s from
 a lazy 4-worker executor; ``query_async`` coalesces concurrent callers
@@ -203,8 +200,7 @@ class _Phases:
                 self.record(f"vectorsearch.query.{phase}", ms / self.n)
 
 
-def _sealed_exact_pool_scored(q, vectors, valid, xn2, *, ef_buf, metric,
-                              packs=None):
+def _sealed_exact_pool_scored(q, vectors, valid, xn2, *, ef_buf, metric):
     """Exact-mode candidate pool WITH its rank scores:
     (scores f32[Q, ef_buf], rows i32[Q, ef_buf]), -inf / -1 in empty slots.
     Tables of ``exact.MIN_ROWS`` rows or more go through the binned pool (a
@@ -213,15 +209,13 @@ def _sealed_exact_pool_scored(q, vectors, valid, xn2, *, ef_buf, metric,
     full-f32 score matrix and an exact top-k. Callers pass ``valid=alive``:
     an exact ranking without tombstones equals dropping them at re-rank.
     q has the index's logical width; the rows' lane-pad columns are zero,
-    and both pool kernels skip them (``d_live``). ``packs`` (an
-    ``exact_ops.PackTimer``) times the packed pool's packs outside a kernel
-    (B2's wide route)."""
+    and both pool kernels skip them (``d_live``)."""
     d_live = q.shape[1]
     q = _pad_cols(q, vectors.shape[1])
     if exact_ops.use_fused_exact_pool(vectors.shape[0], vectors.shape[1], ef_buf):
         return exact_ops.exact_pool_scored(
             q, vectors, valid, ef_buf=ef_buf, metric=metric, xn2=xn2,
-            packed=None, d_live=d_live, packs=packs,
+            packed=None, d_live=d_live,
         )
     scores = distance_ops.pairwise_rank_scores(q, vectors, valid, metric)
     top, idx = torch.topk(scores, ef_buf, dim=1)
@@ -233,17 +227,15 @@ def _sealed_exact_pool_scored(q, vectors, valid, xn2, *, ef_buf, metric,
 
 
 def _sealed_exact_query(q, seg: Segment, slot_base: int, *, ef_buf, rr, metric,
-                        phases: Optional[_Phases] = None, packs=None):
+                        phases: Optional[_Phases] = None):
     """One sealed segment: pool + finalize + the segment-slot plane
     (``_sealed_query_slot_step`` with exact=True in the JAX package).
     ``phases`` times the pool as the scan phase (recorded under the
-    reference's pq_scan instrument) and the finalize as the re-rank;
-    ``packs`` the pool's packs (``_sealed_exact_pool_scored``)."""
+    reference's pq_scan instrument) and the finalize as the re-rank."""
     with stage(POOL):
         snap = seg.device_snapshot()
         ps, pi = _sealed_exact_pool_scored(
             q, snap.vectors, snap.alive, snap.xn2, ef_buf=ef_buf, metric=metric,
-            packs=packs,
         )
     if phases is not None:
         phases.mark("pq_scan_ms")
@@ -256,18 +248,16 @@ def _sealed_exact_query(q, seg: Segment, slot_base: int, *, ef_buf, rr, metric,
     return out
 
 
-def _unified_exact_query(q, stack, slot_base: int, *, ef_buf, rr, metric,
-                         packs=None):
+def _unified_exact_query(q, stack, slot_base: int, *, ef_buf, rr, metric):
     """A subgroup of same-capacity sealed segments as ONE flattened pool:
     an exact ranking is a true ranking, so the global top pool merged once
     equals the merged per-segment pools (``_unified_sealed_query`` with
-    exact=True in the JAX package). Global rows split into (slot, row).
-    ``packs`` times the pool's packs (``_sealed_exact_pool_scored``)."""
+    exact=True in the JAX package). Global rows split into (slot, row)."""
     s_count, n, d = stack.vectors.shape
     with stage(POOL):
         ps, pi = _sealed_exact_pool_scored(
             q, stack.vectors.reshape(s_count * n, d), stack.alive.reshape(-1),
-            stack.xn2.reshape(-1), ef_buf=ef_buf, metric=metric, packs=packs,
+            stack.xn2.reshape(-1), ef_buf=ef_buf, metric=metric,
         )
     with stage(RERANK):
         scores, dists, gidx = traversal_ops.exact_finalize(q, ps, pi, rr, metric)
@@ -1092,7 +1082,7 @@ class VectorIndex:
         profile = every > 0 and self._qb_count > 0 and self._qb_count % every == 0
         self._qb_count += 1
         new_warm: set = set()
-        sampled: list = []  # the batch's _Phases and PackTimers
+        sampled: list = []  # the batch's _Phases
         shape = tuple(qd.shape)
         sgroups: dict[tuple, list[Segment]] = {}
         for seg in sealed_segs:
@@ -1198,9 +1188,6 @@ class VectorIndex:
                                 qg, stack, base, ef_buf=u_ef_buf,
                                 rr=min(per_seg_limit * len(sub), u_ef_buf),
                                 metric=metric,
-                                packs=self._pack_timer(
-                                    profile, ("exact", shape, cap, len(sub)),
-                                    new_warm, sampled),
                             )
                         )
                         continue
@@ -1239,9 +1226,6 @@ class VectorIndex:
                             phases=self._phases(
                                 profile, ("exact", shape, cap, ef_buf, rr),
                                 seg.device, 1, new_warm, sampled),
-                            packs=self._pack_timer(
-                                profile, ("exact", shape, cap, 1),
-                                new_warm, sampled),
                         )
                     )
                 continue
@@ -1437,26 +1421,6 @@ class VectorIndex:
         ph = _Phases(device, n, self._metrics.record if warmed else None)
         sampled.append(ph)
         return ph
-
-    def _pack_timer(self, profile: bool, key: tuple, new_warm: set,
-                    sampled: list) -> Optional[exact_ops.PackTimer]:
-        """The batch's pack timer (``exact_ops.PackTimer``), handed to each
-        of its exact pool calls on a sampled batch (else None): one record
-        a batch, the sum of every call's packs, so the histogram's records
-        are alike whatever groups a batch has. By ``_phases``' rule it
-        records nothing where any call's shape (``key``) runs its first
-        sampled dispatch."""
-        if not profile:
-            return None
-        key = ("packs",) + key
-        pt = next((s for s in sampled if isinstance(s, exact_ops.PackTimer)), None)
-        if pt is None:
-            pt = exact_ops.PackTimer(self._metrics.record)
-            sampled.append(pt)
-        if key not in self._qb_warm:
-            pt.record = None
-        new_warm.add(key)
-        return pt
 
     # -- sealed path, RANDOM_PIVOTS against graph-less segments ---------------
 

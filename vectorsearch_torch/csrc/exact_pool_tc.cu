@@ -5,13 +5,15 @@
 // exact_bin_pool_packed; launched through exact_pool_packed_launch). One
 // mainloop serves each form a launch can take (exact_pool_plan picks it):
 // exact_pool_tc_kernel (B1 narrow: rows of up to 128 live features),
-// exact_pool_wide_kernel (B1 wide: wider rows, after its prologue
+// exact_pool_wide_kernel<false> (B1 wide: wider rows, after its prologue
 // exact_pool_query_planes_kernel) and exact_pool_pipelined_kernel (B2 where
-// its resident query planes fit). B2 on rows too wide for those planes
-// takes B1's wide form at fold 1, and the wrapper packs its planes
-// (vectorsearch_torch/ops/exact.py::pack_tiles). The mainloops share no
-// logic, only the small helpers (the TF32 split, the wgmma wrappers, the
-// descriptors, the query planes' layout, the TMA and mbarrier wrappers).
+// its resident query planes fit). B2 on rows too wide for those planes is
+// exact_pool_wide_kernel<true> (B2 wide): B1's wide mainloop, instruction
+// for instruction, with B2's tile epilogue, so it writes B2's packed plane
+// at the pool's own fold in one launch of all the queries. The mainloops
+// share no logic, only the small helpers (the TF32 split, the wgmma
+// wrappers, the descriptors, the query planes' layout, the TMA and mbarrier
+// wrappers).
 //
 // B1's function (the TPU kernel's, so the two pools compare directly): for
 // each query q and each pool column (group g, bin b), the max over the rows
@@ -77,8 +79,8 @@
 // (wgmma m64nNk8 TF32) with x in registers as the A operand (split into big
 // and small by the consumer threads) and the query tile in shared memory as
 // B, split into two planes in wgmma's K-major layout (no swizzle: 8x4
-// core matrices of 128 contiguous bytes). A block takes 128 (B1) or 64 (B2)
-// pool columns of one group and walks the group's row slices (slice sl is
+// core matrices of 128 contiguous bytes). A block takes 128 (B1, B2 wide)
+// or 64 (B2 pipelined) pool columns of one group and walks the group's row slices (slice sl is
 // rows group_row0 + sl*bins + b0 .., so accumulator row i of every slice
 // belongs to bin b0 + i). The running (max, slice) of each (row, query)
 // pair lives in registers in the accumulator's own fragment layout, so a
@@ -87,7 +89,7 @@
 // indices (in the group) are 16 bits, two per register; B2's (in the tile:
 // a < tile/bins <= 16, and the packed slot is j * tile/bins + a) are 4
 // bits, eight per register, and its running packed maxima live in shared
-// memory. blockIdx.x is the query tile in all three, so the query tiles of
+// memory. blockIdx.x is the query tile in every form, so the query tiles of
 // one column block run side by side and x is read from device memory about
 // once.
 //
@@ -104,7 +106,7 @@
 // 128 KB at NQ 128 and dl 128. Its main path is D 128 (NQ 128: sift1m's kNN
 // seal route, the mesh, Deep10M's brute table).
 //
-// B1 wide (exact_pool_wide_kernel): rows over 128 live features (kq > 128),
+// B1 wide (exact_pool_wide_kernel<false>): rows over 128 live features (kq > 128),
 // whose query planes the narrow kernel cannot hold resident at a useful
 // query tile:
 // - The query planes are split once a launch, by a prologue kernel
@@ -137,15 +139,37 @@
 //   of x over a cluster of two neighbouring query tiles ran 2x slower; 6
 //   stages ran as 4, 3 ran 15% slower (PERF.md section 6, PR 18).
 // Its arithmetic is B2's: 3xTF32 in the same pass order, chunk sums over
-// 32 features added in order, slices ascending on `>`. So B2's planes, made
-// from this form's at fold 1 where B2's own planes do not fit, equal what
-// B2's own mainloop would compute value for value.
-// Shared memory (4 stages):
+// 32 features added in order, slices ascending on `>`.
+//
+// B2 wide (exact_pool_wide_kernel<true>): B2 where its resident query
+// planes do not fit (over 704 live features at Q 512: the 768- to
+// 1,536-feature text embeddings). The mainloop above, unchanged (the same
+// prologue, ring, passes, chunk sums and `>`); only what a slice epilogue
+// keeps differs. The winning slice is kept in its tile, in 4 bits, eight a
+// register (16 registers of slices become 4), by one select of bits as the
+// 16-bit slices take. At a tile's last slice (every tile/bins slices, and
+// at the block's last live one) B2's tile epilogue, as B2's pipelined form
+// has it: each (row, query)'s best of the tile compressed once into
+// rint(v * mult) * F + slot, merged by max into a packed plane in shared
+// memory, the tile's best reset to -inf; the block's queries' mult and
+// qn2 are staged once. It runs once every tile/bins x kq/32 ring steps (192
+// at Cohere10M's 768 features), so it adds well under 1% of the mainloop's
+// instructions; the slice epilogue only marks it due, and the step loop
+// runs it after each pair of steps and after the last, so the unrolled loop
+// holds two copies of it, not one a step. One launch takes all the queries at the pool's fold, in
+// 64-query tiles, and writes only the packed plane [Q, W]: no fold-1
+// planes, no row ids. Every operation of the packing is an IEEE single one
+// (sqrtf, the product, rintf's round half to even; p is an exact integer
+// below 2^24), so the plane equals B1's wide form at fold 1 packed in plain
+// torch (vectorsearch_torch/ops/exact.py::pack_tiles) bit for bit.
+// Shared memory (4 stages; B2 wide adds the packed plane and query terms):
 //   ring, 4 stages x (16 KB of x + 2 x 8 KB of query planes)  131,072
 //   column terms, 4 stages x 2 x 128 x 4 B                        4,096
+//   B2 wide: packed plane, 32 values x 256 threads x 4 B         32,768
+//   B2 wide: query terms, 64 queries x 2 x 4 B                      512
 //   mbarriers, 8 x 8 B                                               64
 //   alignment to the swizzle's 1,024-byte period                  1,024
-//   total                                                       136,256
+//   total                                           136,256 / 169,536
 //
 // B2 pipelined (exact_pool_pipelined_kernel):
 // - One MMA wait a chunk. Each consumer warpgroup takes 64 rows x NQW (up
@@ -199,7 +223,7 @@
 // tile (the packed plane halves to 32 KB). Up to kq 128 fits at NQW 64,
 // 320 at 32, 704 at 16; NQW halves (not below 16, or what Q needs) until
 // the planes fit. Wider rows (768- to 1,536-feature embeddings at Q 512)
-// take B1's wide form at fold 1, packed by the wrapper.
+// take B2's wide form.
 
 #include <cuda.h>  // the tensor map's types (libcuda is not linked)
 #include <cuda_runtime.h>
@@ -419,7 +443,7 @@ struct PoolArgs {
   int* out_i;         // [Q, W] B1's row ids
   int Q, N, D, dl, kq, tile, bins, fold, W, cosine;
   float slot_f;       // B2's F
-  float* qp;          // B1 wide: the query planes' scratch (wide_plane_floats)
+  float* qp;          // the wide forms: the query planes' scratch (wide_plane_floats)
   long long qp_floats;
 };
 
@@ -1025,7 +1049,7 @@ __global__ void __launch_bounds__(P_THREADS, 1)
     }
 }
 
-// ------------------------------------------------- B1 pipelined (wide rows)
+// ----------------------------------------- B1 and B2 wide (B1's mainloop)
 
 constexpr int W_NQ = 64;                    // queries a block
 constexpr int W_STAGES = 4;                 // ring depth
@@ -1039,10 +1063,16 @@ __host__ __device__ __forceinline__ long long wide_plane_floats(int Q, int kq) {
   return (long long)((Q + W_NQ - 1) / W_NQ) * (kq / KC) * 2 * W_PLANE;
 }
 
-// Bytes of shared memory of the wide form (the head of the file itemizes
-// them).
-size_t wide_smem_bytes() {
-  return 1024 + sizeof(float) * (size_t)W_STAGES * (W_STAGE + 2 * ROWS) +
+// Floats of shared memory the packed wide form adds: the packed plane (32
+// values of each consumer thread), then the block's query terms (mult,
+// qn2 of each of its 64 queries).
+constexpr int W_PACKED = W_NQ / 2 * P_CONSUMERS + 2 * W_NQ;
+
+// Bytes of shared memory of the wide form, packed or not (the head of the
+// file itemizes them).
+size_t wide_smem_bytes(bool packed) {
+  return 1024 + sizeof(float) * ((size_t)W_STAGES * (W_STAGE + 2 * ROWS) +
+                                 (packed ? W_PACKED : 0)) +
          2 * W_STAGES * sizeof(uint64_t);
 }
 
@@ -1082,10 +1112,14 @@ __global__ void exact_pool_query_planes_kernel(const PoolArgs a) {
 
 // Shared memory (from a 1,024-byte boundary): the ring of W_STAGES stages,
 // each [128 x 32] of x (128-byte swizzled) then the chunk's big and small
-// query planes [64 x 32]; each stage's column terms [2 x 128]; the full and
-// the empty mbarriers. Threads 0-127 are the producer warpgroup (its warp 0
+// query planes [64 x 32]; each stage's column terms [2 x 128]; PACKED: the
+// packed plane and the block's query terms (W_PACKED); the full and the
+// empty mbarriers. Threads 0-127 are the producer warpgroup (its warp 0
 // issues the copies), 128-383 the two consumer warpgroups: warpgroup w
 // takes rows 64w .. 64w + 63 of each slice against the block's 64 queries.
+// PACKED (B2's wide form) writes B2's packed plane where B1 writes its two
+// planes; its mainloop is B1's, instruction for instruction.
+template <bool PACKED>
 __global__ void __launch_bounds__(P_THREADS, 1)
     exact_pool_wide_kernel(const __grid_constant__ PoolArgs a,
                            const __grid_constant__ CUtensorMap xmap) {
@@ -1093,8 +1127,10 @@ __global__ void __launch_bounds__(P_THREADS, 1)
   float* ring = reinterpret_cast<float*>(
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
   float* cols = ring + W_STAGES * W_STAGE;  // each stage's aux0, aux1 of its 128 rows
+  float* pk = cols + W_STAGES * 2 * ROWS;   // PACKED: element i of thread ct at pk[i * 256 + ct]
+  float* qterm = pk + W_NQ / 2 * P_CONSUMERS;  // PACKED: mult, qn2 of the block's queries
   const uint32_t ring_s = smem_addr(ring);
-  const uint32_t full_s = smem_addr(cols + W_STAGES * 2 * ROWS);
+  const uint32_t full_s = smem_addr(cols + W_STAGES * 2 * ROWS + (PACKED ? W_PACKED : 0));
   const uint32_t empty_s = full_s + 8 * W_STAGES;
   const int N = a.N, bins = a.bins;
   const int tid = threadIdx.x;
@@ -1180,12 +1216,27 @@ __global__ void __launch_bounds__(P_THREADS, 1)
   const int Q = a.Q;
   const int q0 = blockIdx.x * W_NQ;
   const bool cosine = a.cosine != 0;
+  const int per = a.tile / bins;  // PACKED: row slices a tile
+  int in_tile = 0;                // PACKED: the next slice epilogue's slice in its tile
+  int due = -1;                   // PACKED: the first slice of a tile whose epilogue is due
+
+  if constexpr (PACKED) {
+    // the block's queries' quantization terms, staged once
+    for (int n = ct; n < W_NQ; n += P_CONSUMERS) {
+      const int qi = q0 + n;
+      qterm[2 * n] = qi < Q ? a.mult[qi] : 0.f;
+      qterm[2 * n + 1] = (qi < Q && !cosine) ? a.qn2[qi] : 0.f;
+    }
+    asm volatile("bar.sync 1, %0;\n" :: "n"(P_CONSUMERS) : "memory");
+  }
 
   // acc[b][4j + 2h + e] (and sum, best) is row lr + 8h, query q0 + 8j + 2t
-  // + e. The winning slices in the group: 16 bits, two a register.
+  // + e. The winning slices: in the group, 16 bits, two a register; PACKED,
+  // in the tile, 4 bits, eight a register.
   constexpr int NA = W_NQ / 2;
+  constexpr int NSLOT = PACKED ? NA / 8 : NA / 2;
   float acc[2][NA], best[NA], sum[NA];
-  uint32_t fb[2][4][4], fs[2][4][4], slot[NA / 2];
+  uint32_t fb[2][4][4], fs[2][4][4], slot[NSLOT];
 #pragma unroll
   for (int i = 0; i < NA; ++i) {
     acc[0][i] = 0.f;
@@ -1194,7 +1245,7 @@ __global__ void __launch_bounds__(P_THREADS, 1)
     sum[i] = 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < NA / 2; ++i) slot[i] = 0xFFFFFFFFu;
+  for (int i = 0; i < NSLOT; ++i) slot[i] = 0xFFFFFFFFu;
 
   // Where a step lies: chunk c of slice sl, in stage st of ring phase ph.
   struct Pos {
@@ -1263,9 +1314,46 @@ __global__ void __launch_bounds__(P_THREADS, 1)
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   };
 
+  // PACKED, once the slice epilogue of a tile's last slice (or the block's)
+  // has set `due` to the tile's first slice: B2's tile epilogue. Each (row,
+  // query)'s best of the tile is compressed once into p = rint(v * mult) *
+  // F + (the tile's first slice in the group + its slot), v = -sqrt(max(qn2
+  // - best, 0)) (L2) or best (cosine), and merged into the packed plane by
+  // max (the first tile overwrites it; a NaN never wins); the tile's best
+  // starts afresh. The step loop runs it after each pair of steps and once
+  // after the last, so the unrolled loop holds two copies, not one a step:
+  // a slice takes kq/32 >= 2 steps in this form (its query planes did not
+  // fit B2's pipelined form, so kq > 128), and the step after a slice's
+  // last is the next slice's first chunk, which keeps no best.
+  auto tile_epilogue = [&]() {
+    const bool first_tile = due == 0;
+    const int tile0 = due;
+    due = -1;
+#pragma unroll
+    for (int j = 0; j < W_NQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = 8 * j + 2 * t + e;  // the query in the block
+        const float m = qterm[2 * n], n2 = qterm[2 * n + 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h + e;
+          const float b = best[i];
+          const float v = cosine ? b : -sqrtf(fmaxf(n2 - b, 0.f));
+          const int sv = tile0 + (int)((slot[i / 8] >> ((i % 8) * 4)) & 0xFu);
+          const float pv = rintf(v * m) * a.slot_f + (float)sv;
+          float* o = pk + i * P_CONSUMERS + ct;
+          const float old = first_tile ? -CUDART_INF_F : *o;
+          *o = pv > old ? pv : old;
+          best[i] = -CUDART_INF_F;
+        }
+      }
+  };
+
   // Step p's chunk in buffer B, its MMAs complete: into the slice's sum;
-  // at the slice's last chunk keep (score, slice) on `>`. Then its stage
-  // goes back to the producer (its column terms were read last).
+  // at the slice's last chunk keep (score, slice) on `>` (PACKED: and at a
+  // tile's last slice the tile epilogue). Then its stage goes back to the
+  // producer (its column terms were read last).
   auto finish = [&](auto buf, Pos p) {
     constexpr int B = decltype(buf)::value;
 #pragma unroll
@@ -1303,22 +1391,48 @@ __global__ void __launch_bounds__(P_THREADS, 1)
         c0 = ok0 ? -cl[lr] : -CUDART_INF_F;
         c1 = ok1 ? -cl[lr + 8] : -CUDART_INF_F;
       }
-      const uint32_t now = (uint32_t)p.sl;
+      if constexpr (PACKED) {
+        // the slice in its tile in every 4-bit field: one select of bits an
+        // update, as the 16-bit slices take
+        const uint32_t now = (uint32_t)in_tile * 0x11111111u;
 #pragma unroll
-      for (int j = 0; j < W_NQ / 8; ++j) {
+        for (int j = 0; j < W_NQ / 8; ++j) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float m = h ? m1 : m0, cc = h ? c1 : c0;
-          uint32_t sp = slot[2 * j + h];
+          for (int h = 0; h < 2; ++h) {
+            const float m = h ? m1 : m0, cc = h ? c1 : c0;
+            uint32_t sp = slot[(4 * j + 2 * h) / 8];
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int i = 4 * j + 2 * h + e;
-            const float sc = fmaf(sum[i], m, cc);
-            const bool up = sc > best[i];
-            best[i] = up ? sc : best[i];
-            sp = up ? (sp & ~(0xFFFFu << (16 * e))) | (now << (16 * e)) : sp;
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * j + 2 * h + e;
+              const uint32_t field = 0xFu << ((i % 8) * 4);
+              const float sc = fmaf(sum[i], m, cc);
+              const bool up = sc > best[i];
+              best[i] = up ? sc : best[i];
+              sp = up ? (sp & ~field) | (now & field) : sp;
+            }
+            slot[(4 * j + 2 * h) / 8] = sp;
           }
-          slot[2 * j + h] = sp;
+        }
+        if (in_tile == per - 1 || p.sl + 1 == nsl) due = p.sl - in_tile;
+        if (++in_tile == per) in_tile = 0;
+      } else {
+        const uint32_t now = (uint32_t)p.sl;
+#pragma unroll
+        for (int j = 0; j < W_NQ / 8; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float m = h ? m1 : m0, cc = h ? c1 : c0;
+            uint32_t sp = slot[2 * j + h];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * j + 2 * h + e;
+              const float sc = fmaf(sum[i], m, cc);
+              const bool up = sc > best[i];
+              best[i] = up ? sc : best[i];
+              sp = up ? (sp & ~(0xFFFFu << (16 * e))) | (now << (16 * e)) : sp;
+            }
+            slot[2 * j + h] = sp;
+          }
         }
       }
     }
@@ -1342,6 +1456,9 @@ __global__ void __launch_bounds__(P_THREADS, 1)
       issue(Buf<0>{}, p);
       wgmma_wait<1>();
       finish(Buf<1>{}, p1);
+      if constexpr (PACKED) {
+        if (due >= 0) tile_epilogue();
+      }
     }
     if (s < steps) {
       const Pos p1 = next(p);
@@ -1354,11 +1471,14 @@ __global__ void __launch_bounds__(P_THREADS, 1)
       wgmma_wait<0>();
       finish(Buf<0>{}, p);
     }
+    if constexpr (PACKED) {
+      if (due >= 0) tile_epilogue();
+    }
   }
 #endif
 
   // the planes out: a bin no row won (a column block past N) scores -inf,
-  // id -1
+  // id -1; PACKED, the packed plane (-inf where no tile ran)
   const long long col0 = (long long)grp * bins + b0;
 #pragma unroll
   for (int j = 0; j < W_NQ / 8; ++j)
@@ -1371,9 +1491,13 @@ __global__ void __launch_bounds__(P_THREADS, 1)
         const int r = lr + 8 * h;
         const long long o = (long long)qi * a.W + col0 + r;
         const int i = 4 * j + 2 * h + e;
-        const uint32_t sv = (slot[i / 2] >> (16 * e)) & 0xFFFFu;
-        a.out_s[o] = best[i];
-        a.out_i[o] = sv == NO_SLICE ? -1 : (int)(first + (long long)sv * bins + r);
+        if constexpr (PACKED) {
+          a.out_s[o] = nsl == 0 ? -CUDART_INF_F : pk[i * P_CONSUMERS + ct];
+        } else {
+          const uint32_t sv = (slot[i / 2] >> (16 * e)) & 0xFFFFu;
+          a.out_s[o] = best[i];
+          a.out_i[o] = sv == NO_SLICE ? -1 : (int)(first + (long long)sv * bins + r);
+        }
       }
 }
 
@@ -1420,9 +1544,10 @@ int launch_pipelined(const PoolArgs& a, const CUtensorMap& xmap, cudaStream_t st
   return (int)cudaGetLastError();
 }
 
+template <bool PACKED>
 int launch_wide(const PoolArgs& a, const CUtensorMap& xmap, cudaStream_t stream) {
   static bool ready[64];
-  const int e = allow_max_smem((const void*)exact_pool_wide_kernel, ready);
+  const int e = allow_max_smem((const void*)exact_pool_wide_kernel<PACKED>, ready);
   if (e != (int)cudaSuccess) return e;
   const long long total = wide_plane_floats(a.Q, a.kq) / 2;
   const long long blocks = (total + 255) / 256;
@@ -1430,7 +1555,8 @@ int launch_wide(const PoolArgs& a, const CUtensorMap& xmap, cudaStream_t stream)
   const cudaError_t pe = cudaGetLastError();
   if (pe != cudaSuccess) return (int)pe;
   const dim3 grid((a.Q + W_NQ - 1) / W_NQ, a.W / ROWS);
-  exact_pool_wide_kernel<<<grid, P_THREADS, wide_smem_bytes(), stream>>>(a, xmap);
+  exact_pool_wide_kernel<PACKED>
+      <<<grid, P_THREADS, wide_smem_bytes(PACKED), stream>>>(a, xmap);
   return (int)cudaGetLastError();
 }
 
@@ -1476,23 +1602,23 @@ bool x_tensor_map(CUtensorMap* map, const PoolArgs& a, int rows) {
 }
 
 // The form of a launch (exact_pool_plan's result): B1's narrow kernel
-// (resident query planes) or its wide form, B2's pipelined form, or B2
-// through B1's wide form at fold 1, which the wrapper runs and packs.
+// (resident query planes) or its wide form, B2's pipelined form, or B2's
+// wide form (B1's wide mainloop with B2's tile epilogue).
 enum Form { FORM_NONE = 0, FORM_PIPELINED = 1, FORM_WIDE = 2, FORM_RESIDENT = 3 };
 
 struct Plan {
   int form;           // Form
-  int nq;             // queries a block (0 for FORM_WIDE: B1's launch says)
-  long long scratch;  // floats of the query planes' scratch (B1 wide)
+  int nq;             // queries a block
+  long long scratch;  // floats of the query planes' scratch (B1's and B2's wide forms)
 };
 
 // The form a launch takes at Q queries, row stride D, dl live features and
 // W pool columns. B1: rows of up to 128 live features the narrow kernel at
 // the power of two up to 128 that Q needs, wider rows the wide form. B2:
 // its pipelined form where its planes fit at 16 queries a warpgroup or
-// more, else FORM_WIDE. FORM_NONE where no form launches: a row stride that
-// is no multiple of 4 floats, dl outside 1 .. D, or more column blocks than
-// the grid's 65,535.
+// more, else its wide form (FORM_WIDE). FORM_NONE where no form launches: a
+// row stride that is no multiple of 4 floats, dl outside 1 .. D, or more
+// column blocks than the grid's 65,535.
 Plan plan(int Q, int D, int dl, int W, bool packed) {
   const Plan none{FORM_NONE, 0, 0};
   if (D % 4 != 0 || dl < 1 || dl > D) return none;
@@ -1505,9 +1631,12 @@ Plan plan(int Q, int D, int dl, int W, bool packed) {
     int nqw = want / 2 < 8 ? 8 : want / 2;
     const int least = nqw < 16 ? nqw : 16;
     while (nqw > least && pipe_smem_bytes(nqw, kq) > SMEM_MAX) nqw /= 2;
-    if (pipe_smem_bytes(nqw, kq) > SMEM_MAX) return {FORM_WIDE, 0, 0};
-    p = {FORM_PIPELINED, 2 * nqw, 0};
-    rows = P_ROWS;
+    if (pipe_smem_bytes(nqw, kq) > SMEM_MAX) {
+      p = {FORM_WIDE, W_NQ, wide_plane_floats(Q, kq)};
+    } else {
+      p = {FORM_PIPELINED, 2 * nqw, 0};
+      rows = P_ROWS;
+    }
   } else if (kq <= 128) {
     p = {FORM_RESIDENT, want, 0};
   } else {
@@ -1516,13 +1645,11 @@ Plan plan(int Q, int D, int dl, int W, bool packed) {
   return W / rows > 65535 ? none : p;
 }
 
-// Launches the form plan() picks; the packed pool's FORM_WIDE is the
-// wrapper's to run.
+// Launches the form plan() picks.
 int dispatch(PoolArgs a, bool packed, void* stream) {
   if (a.Q <= 0 || a.W <= 0) return (int)cudaSuccess;
   const Plan p = plan(a.Q, a.D, a.dl, a.W, packed);
-  if (p.form == FORM_NONE || p.form == FORM_WIDE ||
-      (long long)a.fold * (a.tile / a.bins) >= NO_SLICE ||
+  if (p.form == FORM_NONE || (long long)a.fold * (a.tile / a.bins) >= NO_SLICE ||
       (packed && a.tile / a.bins > 16) ||
       (reinterpret_cast<uintptr_t>(a.x) & 15) != 0)
     return (int)cudaErrorInvalidValue;
@@ -1538,11 +1665,13 @@ int dispatch(PoolArgs a, bool packed, void* stream) {
     }
     return (int)cudaErrorInvalidValue;
   }
+  // B1's wide mainloop: B1's wide form, or B2's (FORM_WIDE)
+  const bool wide = !packed || p.form == FORM_WIDE;
   CUtensorMap xmap;
-  if (!x_tensor_map(&xmap, a, packed ? P_ROWS : ROWS)) return (int)cudaErrorInvalidValue;
-  if (!packed) {
+  if (!x_tensor_map(&xmap, a, wide ? ROWS : P_ROWS)) return (int)cudaErrorInvalidValue;
+  if (wide) {
     if (a.qp == nullptr || a.qp_floats < p.scratch) return (int)cudaErrorInvalidValue;
-    return launch_wide(a, xmap, s);
+    return packed ? launch_wide<true>(a, xmap, s) : launch_wide<false>(a, xmap, s);
   }
   switch (p.nq / 2) {
     case 64: return launch_pipelined<64>(a, xmap, s);
@@ -1558,8 +1687,8 @@ int dispatch(PoolArgs a, bool packed, void* stream) {
 // The form (enum Form) a launch of the two-plane pool (packed 0) or of the
 // packed pool (packed 1) takes at Q queries, row stride D, d_live live
 // features and W pool columns, the queries a block in *tile and the floats
-// of query-plane scratch the launch needs in *scratch (0 but for B1's wide
-// form). The wrappers ask it before they allocate and launch.
+// of query-plane scratch the launch needs in *scratch (0 but for the wide
+// forms). The wrappers ask it before they allocate and launch.
 extern "C" int exact_pool_plan(int Q, int D, int d_live, int W, int packed,
                                int* tile, long long* scratch) {
   const Plan p = plan(Q, D, d_live, W, packed != 0);
@@ -1570,12 +1699,12 @@ extern "C" int exact_pool_plan(int Q, int D, int d_live, int W, int packed,
 
 // Both launch on the caller's stream and return cudaGetLastError() (0 =
 // launched; nothing is launched for no query or no column), or
-// cudaErrorInvalidValue where exact_pool_plan finds no form (or, for the
-// packed pool, FORM_WIDE), for 65,535 or more row slices per group, for x
-// off a 16-byte boundary or a tensor map that fails, or for a wide launch
-// whose query planes' scratch (qplanes, qplane_floats floats; unused by
-// other forms) is smaller than exact_pool_plan's. The other checks are the
-// Python wrappers' (vectorsearch_torch/ops/exact.py).
+// cudaErrorInvalidValue where exact_pool_plan finds no form, for 65,535 or
+// more row slices per group, for x off a 16-byte boundary or a tensor map
+// that fails, or for a wide launch whose query planes' scratch (qplanes,
+// qplane_floats floats; unused by other forms) is smaller than
+// exact_pool_plan's. The other checks are the Python wrappers'
+// (vectorsearch_torch/ops/exact.py).
 extern "C" int exact_pool_launch(const float* q, const float* x,
                                  const float* aux0, const float* aux1,
                                  float* out_s, int* out_i, int Q, int N, int D,
@@ -1594,8 +1723,10 @@ extern "C" int exact_pool_packed_launch(const float* q, const float* x,
                                         float* out, int Q, int N, int D,
                                         int d_live, int tile, int bins,
                                         int fold, int W, int cosine,
-                                        float slot_f, void* stream) {
+                                        float slot_f, float* qplanes,
+                                        long long qplane_floats, void* stream) {
   const PoolArgs a{q, x, aux0, aux1, mult, qn2, out, nullptr, Q, N, D,
-                   d_live, 0, tile, bins, fold, W, cosine, slot_f, nullptr, 0};
+                   d_live, 0, tile, bins, fold, W, cosine, slot_f, qplanes,
+                   qplane_floats};
   return dispatch(a, true, stream);
 }

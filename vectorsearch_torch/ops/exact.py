@@ -29,8 +29,8 @@ Intended differences from the JAX package (ROADMAP.md Queue C):
 - ``use_fused_exact_pool`` has no backend test, so the CPU runs the same
   binned route as the card;
 - a pool of more than 65,535 column blocks raises (the grid's limit): past
-  ~536M rows at tile 1,024 and fold 8 on B1, ~268M on B2's pipelined form,
-  ~67M on its wide route (fold 1).
+  ~536M rows at tile 1,024 and fold 8 on B1 and on B2's wide form, ~268M on
+  B2's pipelined form.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ import torch
 
 from vectorsearch_torch.ops.distance import matmul_nt
 from vectorsearch_torch.utils import cuda_build
-from vectorsearch_torch.utils.metrics import device_mark, elapsed_ms, get_registry, span
+from vectorsearch_torch.utils.metrics import get_registry, span
 
 _BINS = 128  # one 128-wide row of bins per 1024 rows of tile
 
@@ -127,6 +127,7 @@ def _bind_tc(lib) -> None:
     lib.exact_pool_launch.restype = ctypes.c_int
     lib.exact_pool_packed_launch.argtypes = [
         p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p,
+        ctypes.c_longlong, p,
     ]
     lib.exact_pool_packed_launch.restype = ctypes.c_int
 
@@ -143,53 +144,15 @@ LAUNCHES = "vectorsearch.exact_pool.launches"
 #: Registry counter of B2's launches, by the form the kernel took
 #: (attribute ``form``): ``pipelined`` (its own mainloop, resident query
 #: planes, a TMA ring) or ``wide`` (rows too wide for those planes: B1's
-#: wide form at fold 1, whose planes ``pack_tiles`` packs; each such
-#: launch of B1 counts under ``LAUNCHES`` too).
+#: wide mainloop with B2's tile epilogue, which packs in the kernel; one
+#: launch a call, not counted under ``LAUNCHES``).
 PACKED_LAUNCHES = "vectorsearch.exact_pool.packed.launches"
 _FORMS = {1: "pipelined", 2: "wide", 3: "resident"}  # csrc's enum Form
 _MAX_SLICES = 65_534  # csrc/exact_pool_tc.cu: 16-bit slice ids, one kept free
-# B2's wide route runs B1 over blocks of queries whose two fold-1 planes
-# (f32 scores, i32 rows) take at most this many bytes
-_PACK_BLOCK_BYTES = 1 << 30
-#: Span of one B1 launch of B2's wide route, recorded always (a few a
-#: batch), with the attributes ``queries`` (the block's) and ``rows`` (the
-#: table's).
+#: Span of one launch of B2's wide form, recorded always (one a packed
+#: call: two a Cohere10M batch), with the attributes ``queries`` (all the
+#: call's) and ``rows`` (the table's).
 WIDE_PASS = "vectorsearch.exact_pool.wide_pass"
-#: Histogram of the time (ms) a query batch's packed pool calls spent in
-#: ``pack_tiles``, one record a sampled batch (``PackTimer``).
-PACK_MS = "vectorsearch.exact_pool.pack_ms"
-
-
-class PackTimer:
-    """The time the packed pool calls it is handed spend in ``pack_tiles``:
-    a mark before and after each pack (CUDA events on the card, the host
-    clock on the CPU), summed and recorded once as ``PACK_MS`` by
-    ``finish``, which the caller runs once the calls' answers are on the
-    host, so nothing waits for the device. ``record`` (a registry's
-    ``record``) None takes the marks and records nothing (a shape's first
-    sampled dispatch pays first-use costs); calls that pack nothing record
-    nothing."""
-
-    def __init__(self, record):
-        self.record = record
-        self._marks: list = []  # (before, after) of each pack
-
-    @contextlib.contextmanager
-    def around(self, device):
-        """Marks the pack run inside the block, on ``device``."""
-        before = device_mark(device)
-        yield
-        self._marks.append((before, device_mark(device)))
-
-    def finish(self) -> None:
-        if self.record is None or not self._marks:
-            return
-        self.record(PACK_MS, sum(elapsed_ms(a, b) for a, b in self._marks))
-
-
-def _packing(packs, device):
-    """``packs.around(device)``, or nothing where no timer is given."""
-    return contextlib.nullcontext() if packs is None else packs.around(device)
 
 
 def _check_d_live(who: str, d_live, d: int) -> int:
@@ -214,6 +177,16 @@ def _pad_width(q_in, x, d_live):
         q_in = torch.nn.functional.pad(q_in, pad)
         x = torch.nn.functional.pad(x, pad)
     return q_in, x, d_live
+
+
+def _launch(who, dev, fn, *args):
+    """Calls the library's launch function ``fn`` with ``args`` and the
+    current stream of ``dev``, with ``dev`` the current device; raises on a
+    CUDA error."""
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{who} failed: CUDA error {rc}")
 
 
 def _plan(lib, who, qn, d, d_live, w, packed):
@@ -295,17 +268,14 @@ def exact_pool_cuda(q_in, x, aux, *, metric, tile, bins, fold, w,
     # the wide form's query planes: released with the call, which the
     # caching allocator orders after the launch on this stream
     planes = torch.empty((nplane,), dtype=torch.float32, device=dev) if nplane else None
-    with torch.cuda.device(dev):
-        rc = lib.exact_pool_launch(
-            q_in.data_ptr(), x.data_ptr(), aux[0].data_ptr(),
-            aux[1].data_ptr() if cosine else None,
-            outs.data_ptr(), outi.data_ptr(),
-            qn, n, d, d_live, tile, bins, fold, w, int(cosine),
-            planes.data_ptr() if nplane else None, nplane,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"exact_pool_launch failed: CUDA error {rc}")
+    _launch(
+        "exact_pool_launch", dev, lib.exact_pool_launch,
+        q_in.data_ptr(), x.data_ptr(), aux[0].data_ptr(),
+        aux[1].data_ptr() if cosine else None,
+        outs.data_ptr(), outi.data_ptr(),
+        qn, n, d, d_live, tile, bins, fold, w, int(cosine),
+        planes.data_ptr() if nplane else None, nplane,
+    )
     with _count_lock:
         exact_pool_cuda.launches += 1
     if qn and w:  # else nothing was launched
@@ -384,7 +354,7 @@ def pack_tiles(m, rows, mult, qn2, *, metric, tile, bins, fold, w, slot_f):
 
 
 def exact_pool_packed_cuda(q_in, x, aux, mult, qn2, *, metric, tile, bins,
-                           fold, w, slot_f, d_live=None, packs=None):
+                           fold, w, slot_f, d_live=None):
     """Launches the packed CUDA pool kernel on the current stream. q_in
     f32[Q, D] (pre-doubled for L2), x f32[N, D], aux f32[1|2, N], mult and
     qn2 f32[Q] (the quantization factor SQ/scale and ||q||^2) -> the packed
@@ -392,11 +362,14 @@ def exact_pool_packed_cuda(q_in, x, aux, mult, qn2, *, metric, tile, bins,
     0 .. d_live-1 only; the caller vouches that the others are zero in q_in
     or in x (lane padding), so skipping them changes no bit. A width that
     is no multiple of 4 is copied with zero columns first (``_pad_width``).
-    Rows too wide for the pipelined form's resident planes take
-    ``_packed_wide_route``, whose packs ``packs`` (a ``PackTimer``) times;
-    the pipelined form packs inside the kernel, untimed.
-    ``exact_pool_packed_cuda.launches`` counts the calls, and the registry's
-    ``PACKED_LAUNCHES`` counts them by the form the pool took."""
+    Rows too wide for the pipelined form's resident planes take B2's wide
+    form: one launch of all Q queries at the pool's fold, B1's wide
+    mainloop packing in its tile epilogue, with a scratch of split query
+    planes (as csrc's exact_pool_plan sizes it: 3.1 MB at Q 512 x 768) and
+    one ``WIDE_PASS`` span. Both forms pack inside the kernel.
+    ``exact_pool_packed_cuda.launches`` counts the calls, and
+    the registry's ``PACKED_LAUNCHES`` counts them by the form the pool
+    took."""
     who = "exact_pool_packed_cuda"
     (qn, d), n = q_in.shape, x.shape[0]
     dev = x.device
@@ -413,24 +386,22 @@ def exact_pool_packed_cuda(q_in, x, aux, mult, qn2, *, metric, tile, bins,
     q_in, x, d_live = _pad_width(q_in, x, d_live)
     d = x.shape[1]
     lib = cuda_build.load("exact_pool_tc", _bind_tc)
-    form, _nq, _scratch = _plan(lib, who, qn, d, d_live, w, packed=True)
-    geom = dict(metric=metric, tile=tile, bins=bins, fold=fold, w=w,
-                slot_f=slot_f, d_live=d_live)
-    if form == "wide":
-        out = _packed_wide_route(q_in, x, aux, mult, qn2, **geom, packs=packs)
-    else:
-        out = torch.empty((qn, w), dtype=torch.float32, device=dev)
-        cosine = metric == "COSINE"
-        with torch.cuda.device(dev):
-            rc = lib.exact_pool_packed_launch(
-                q_in.data_ptr(), x.data_ptr(), aux[0].data_ptr(),
-                aux[1].data_ptr() if cosine else None,
-                mult.data_ptr(), qn2.data_ptr(), out.data_ptr(),
-                qn, n, d, d_live, tile, bins, fold, w, int(cosine), slot_f,
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
-        if rc != 0:
-            raise RuntimeError(f"exact_pool_packed_launch failed: CUDA error {rc}")
+    form, _nq, nplane = _plan(lib, who, qn, d, d_live, w, packed=True)
+    out = torch.empty((qn, w), dtype=torch.float32, device=dev)
+    # the wide form's query planes: released with the call, which the
+    # caching allocator orders after the launch on this stream
+    planes = torch.empty((nplane,), dtype=torch.float32, device=dev) if nplane else None
+    cosine = metric == "COSINE"
+    wide = form == "wide" and qn > 0 and w > 0  # else nothing is launched
+    with span(WIDE_PASS, {"queries": qn, "rows": n}) if wide else contextlib.nullcontext():
+        _launch(
+            "exact_pool_packed_launch", dev, lib.exact_pool_packed_launch,
+            q_in.data_ptr(), x.data_ptr(), aux[0].data_ptr(),
+            aux[1].data_ptr() if cosine else None,
+            mult.data_ptr(), qn2.data_ptr(), out.data_ptr(),
+            qn, n, d, d_live, tile, bins, fold, w, int(cosine), slot_f,
+            planes.data_ptr() if nplane else None, nplane,
+        )
     with _count_lock:
         exact_pool_packed_cuda.launches += 1
     if qn and w:  # else nothing was launched
@@ -441,40 +412,12 @@ def exact_pool_packed_cuda(q_in, x, aux, mult, qn2, *, metric, tile, bins,
 exact_pool_packed_cuda.launches = 0
 
 
-def _packed_wide_route(q_in, x, aux, mult, qn2, *, metric, tile, bins, fold,
-                       w, slot_f, d_live, packs=None):
-    """B2 on rows too wide for its pipelined form's resident planes: B1
-    (``exact_pool_cuda``, its wide form) at fold 1, then ``pack_tiles``, over
-    blocks of queries whose two fold-1 planes take at most
-    ``_PACK_BLOCK_BYTES``. B1's wide form computes B2's arithmetic (the same
-    3xTF32 passes and chunk sums), and the sqrt, the round-half-even and the
-    products are IEEE single operations on both sides, so the plane is the
-    one B2's own mainloop would write. Each launch of B1 is a ``WIDE_PASS``
-    span; ``packs`` (a ``PackTimer``) times the packs."""
-    qn, n = q_in.shape[0], x.shape[0]
-    w1 = -(-n // tile) * bins
-    block = max(1, _PACK_BLOCK_BYTES // max(1, 8 * w1))
-    out = torch.empty((qn, w), dtype=torch.float32, device=x.device)
-    for s in range(0, qn, block):
-        e = min(qn, s + block)
-        with span(WIDE_PASS, {"queries": e - s, "rows": n}):
-            m, rows = exact_pool_cuda(q_in[s:e], x, aux, metric=metric,
-                                      tile=tile, bins=bins, fold=1, w=w1,
-                                      d_live=d_live)
-        with _packing(packs, x.device):
-            out[s:e] = pack_tiles(m, rows, mult[s:e], qn2[s:e], metric=metric,
-                                  tile=tile, bins=bins, fold=fold, w=w,
-                                  slot_f=slot_f)
-    return out
-
-
 def exact_pool_packed_plain(q_in, x, aux, mult, qn2, *, metric, tile, bins,
-                            fold, w, slot_f, d_live=None, packs=None):
+                            fold, w, slot_f, d_live=None):
     """The packed kernel's function in plain PyTorch (same arguments and
     output; ``d_live`` is not needed: the columns past it are zero and add
     exact zeros to the full product): the binned pool at fold 1, whose bins
-    are each tile's raw (max, smallest row), packed by ``pack_tiles``, which
-    ``packs`` (a ``PackTimer``) times."""
+    are each tile's raw (max, smallest row), packed by ``pack_tiles``."""
     cross = matmul_nt(q_in, x)  # [Q, N], full f32
     if metric == "COSINE":
         s = cross * aux[0][None, :] + aux[1][None, :]
@@ -484,9 +427,8 @@ def exact_pool_packed_plain(q_in, x, aux, mult, qn2, *, metric, tile, bins,
     nn = -(-x.shape[0] // tile)  # the tiles that hold rows (the TPU kernel's grid)
     m, rows = bin_argmax(s, tile=tile, bins=bins, fold=1, w=nn * bins)
     del s
-    with _packing(packs, x.device):
-        return pack_tiles(m, rows, mult, qn2, metric=metric, tile=tile,
-                          bins=bins, fold=fold, w=w, slot_f=slot_f)
+    return pack_tiles(m, rows, mult, qn2, metric=metric, tile=tile,
+                      bins=bins, fold=fold, w=w, slot_f=slot_f)
 
 
 # ------------------------------------------------------------ the wrapper
@@ -598,19 +540,18 @@ def exact_bin_pool_packed(
     fold: int | None = None,
     min_w: int = 16384,
     d_live: int | None = None,
-    packs: PackTimer | None = None,
 ):
     """Packed stage 1: (ONE f32[Q, W] plane whose values order by quantized
     score and carry the winning slot, the dequantization step f32[Q]).
     Decode with decode_packed_pool under the same geometry arguments. A
     CUDA tensor runs the kernel, a CPU tensor its plain version.
     ``d_live``: the features past it are zero (lane padding); the kernel
-    skips them. ``packs`` times the packs done outside a kernel."""
+    skips them."""
     q_in, aux, mult, qn2, step, geom = packed_pool_inputs(
         q, x, valid, metric, tile_n, xn2, fold, min_w, d_live
     )
     fn = exact_pool_packed_cuda if x.is_cuda else exact_pool_packed_plain
-    return fn(q_in, x, aux, mult, qn2, **geom, packs=packs), step
+    return fn(q_in, x, aux, mult, qn2, **geom), step
 
 
 def decode_packed_pool(
@@ -675,7 +616,6 @@ def exact_pool_scored(
     fold: int | None = None,
     packed: bool | None = None,
     d_live: int | None = None,
-    packs: PackTimer | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact candidate pool WITH its rank scores: (scores f32[Q, ef_buf],
     row ids i32[Q, ef_buf]), -inf / -1 in empty slots. The scores are the
@@ -688,15 +628,14 @@ def exact_pool_scored(
     values and their columns. Its scores carry the packing's quantization
     (a step of scale/SQ); ``stage2_halve`` reduces (score, id) pairs and so
     always takes the two-plane kernel. ``d_live``: the features past it are
-    zero (lane padding), which both kernels skip. ``packs`` (a
-    ``PackTimer``) times the packed pool's packs done outside a kernel."""
+    zero (lane padding), which both kernels skip."""
     if packed is None:
         packed = _packed_default(x.shape[0])
     min_w = max(16384, 4 * ef_buf)
     if packed and not stage2_halve:
         pool, step = exact_bin_pool_packed(
             q, x, valid, metric=metric, tile_n=tile_n, xn2=xn2, fold=fold,
-            min_w=min_w, d_live=d_live, packs=packs,
+            min_w=min_w, d_live=d_live,
         )
         pv, pos = torch.topk(pool, min(ef_buf, pool.shape[1]), dim=1)
         if pos.shape[1] < ef_buf:
