@@ -59,8 +59,14 @@ result):
      16,384 rows (N 10,112), a tail case (N 50,123, ~2% valid rows, dead
      bins, B4's pad columns), a wide LUT (M 64, K 256, D 256), an
      integer-valued LUT whose sums tie often and a small batch on narrow
-     lines (Q 9, N 20,123, M 12, K 100); all four bit-identical to their
-     plain versions, pool ids in every live bin included;
+     lines (Q 9, N 20,123, M 12, K 100), and openai500k.batch512's LUT
+     (Q 512, M 192, K 256, D 1,536, N 100,096: two queries a line, B3's
+     widest LUT); all four bit-identical to their plain versions, pool ids
+     in every live bin included;
+   - the flat re-rank's cosine branch at 1,536 features (openai500k's
+     shape: unit rows near unit centres, Q 512, two segments' candidates of
+     256, a zero row and a zero query) against float64: distances within
+     1e-6, the zero-norm rule's distance 1 exactly;
 4. end to end on sift1m (1M x 128 clustered rows from seed 42, 10 sealed
    segments of 100k, L2, 512-query batches, k = 10, recall@10 on 128
    held-out queries against float64 ground truth computed on the card):
@@ -145,7 +151,8 @@ result):
    ADC kernels also their lookup ceiling (the shared-memory bank reads of
    their Q*N_valid*M lookups at 32 a cycle per SM, at the card's maximum SM
    clock; logged, not in the kernels line) and their time on codes that
-   are the same in every row (every load one line: no bank conflict); B4
+   are the same in every row (every load one line: no bank conflict); B3
+   also at openai500k.batch512's segment (M 192, two queries a line); B4
    at its route's N 10,112 (its figures in the kernels line: kernel and
    library timed as CUDA graphs of 20 calls, so the host's pace stays out),
    five host-loop timings there as earlier versions took them, and its
@@ -852,6 +859,49 @@ def _check_adc(case, adc_ops):
               + " ".join(f"{key}_err={v:.3e}" for key, v in errs.items())
               + "; " + "; ".join(notes))
     return errs, report
+
+
+def _check_rerank_cosine(traversal_ops):
+    """The flat re-rank's cosine branch at openai500k.batch512's width
+    (1,536 features, unit rows near unit centres, queries a centre plus
+    noise; Q 512, two segments' candidates of 256) against float64: the
+    kept rows' distances within 1e-6 (float32's roundings of the sums and
+    norms), a zero row at distance 1 exactly, a zero query at 1 from every
+    row. Returns the report."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    n, d, qn, c = 100_096, 1536, 512, 256
+    centres = torch.randn((64, d), generator=g, device="cuda")
+    centres /= centres.norm(dim=1, keepdim=True)
+    x = centres[torch.randint(0, 64, (n,), generator=g, device="cuda")]
+    x = x + 0.02 * torch.randn((n, d), generator=g, device="cuda")
+    x /= x.norm(dim=1, keepdim=True)
+    x[3] = 0.0
+    q = centres[torch.randint(0, 64, (qn,), generator=g, device="cuda")]
+    q = q + 0.02 * torch.randn((qn, d), generator=g, device="cuda")
+    q[-1] = 0.0
+    cand = torch.randint(0, n, (2, qn, c), generator=g, device="cuda",
+                         dtype=torch.int32)
+    cand[:, :, 0] = 3
+    alive = torch.ones(n, dtype=torch.bool, device="cuda")
+    _sc, di, iv = traversal_ops.exact_rerank_segments(
+        q, [(x, alive), (x, alive)], cand, 20, "COSINE")
+    torch.cuda.synchronize()
+    x64, q64 = x.double(), q.double()
+    rows = x64[iv.long()]
+    den = q64.norm(dim=1)[None, :, None] * rows.norm(dim=-1)
+    sim = torch.where(den == 0, 0.0, torch.einsum("qd,sqcd->sqc", q64, rows)
+                      / torch.where(den == 0, 1.0, den))
+    err = float((di.double() - (1.0 - sim)).abs().max())
+    del rows, x64, sim
+    if err > 1e-6:
+        raise AssertionError(f"re-rank cosine at D 1,536: distance error {err}")
+    if not bool((di[:, -1] == 1.0).all()) or not bool((di[iv == 3] == 1.0).all()):
+        raise AssertionError("re-rank cosine at D 1,536: a zero norm's distance is not 1")
+    return (f"flat re-rank cosine, Q 512 x 2 segments x 256 candidates x D 1,536: "
+            f"max distance error {err:.3e} (limit 1e-6), zero row and zero "
+            f"query at 1")
 
 
 # --------------------------------------------------------------- phase 4
@@ -2739,6 +2789,9 @@ def main() -> int:
         # B4 at a mesh shard (the last shard of a segment: 96 pad rows)
         _adc_case("ADC mesh shard (N 25,024)", 25_024, seed=17,
                   pad_from=24_928),
+        # openai500k.batch512's segment: B3 at two queries a line
+        _adc_case("ADC OpenAI500K segment (M 192, K 256, D 1,536)", 100_096,
+                  seed=18, m=192, d=1536, pad_from=100_000),
     ]
     for case in adc_cases:
         errs, report = _check_adc(case, adc_ops)
@@ -2746,7 +2799,10 @@ def main() -> int:
             max_err[key] = max(max_err[key], v)
         _log(f"kernel vs plain {tag}: {report}")
     adc_sift, adc_small, adc_mesh = adc_cases[0], adc_cases[1], adc_cases[6]
+    adc_openai = adc_cases[7]
     del adc_cases
+    torch.cuda.empty_cache()
+    _log(f"kernel vs float64 {tag}: {_check_rerank_cosine(traversal_ops)}")
     torch.cuda.empty_cache()
     _log(f"phases 1-3 {tag}: {time.time() - t_start:.1f} s")
 
@@ -3007,6 +3063,19 @@ def main() -> int:
              f"ms ({t['bound_by']}), lookup ceiling (bank reads) "
              f"{x['lookup_ceiling_ms']:.4f} ms, kernel on codes equal in every "
              f"row {x['same_codes_ms']:.4f} ms")
+    # B3 at openai500k.batch512's segment (M 192: two queries a line)
+    wide_lut, _x = _adc_timings(adc_openai, adc_ops, peaks, names=("adc_pool",))
+    t = wide_lut["adc_pool"]
+    _log(f"timing adc_pool {tag}: Q 512 x N 100,096 x M 192 x K 256 (2 queries "
+         f"a line): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+         f"one-hot torch.matmul {t['library_ms']:.4f} ms, bound "
+         f"{t['bound_ms']:.4f} ms ({t['bound_by']}), lookup ceiling (bank "
+         f"reads) {_x['adc_pool']['lookup_ceiling_ms']:.4f} ms, kernel on codes "
+         f"equal in every row {_x['adc_pool']['same_codes_ms']:.4f} ms")
+    timings["adc_pool"].update({
+        f"{key}_openai_segment": v for key, v in t.items() if key != "bound_by"})
+    del adc_openai
+    torch.cuda.empty_cache()
     # B4 at its route (a segment under 16,384 rows): its figures in the
     # kernels line, the sift1m segment's beside them
     route, route_extra = _adc_timings(adc_small, adc_ops, peaks,

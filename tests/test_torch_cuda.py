@@ -545,6 +545,72 @@ def test_segment_planes_match_plain(cuda, rng, n):
         assert torch.equal(scores[i], ta.adc_scores_plain(lh[i], codes[i], valids[i]))
 
 
+def test_b3_at_a_text_embedding_lut_matches_plain(cuda):
+    """B3 at openai500k.batch512's shape: Q 512 x M 192 x K 256 over a
+    100,096-row segment whose last 96 rows are its pad. The LUT's lines fit
+    two queries a line (196,608 bytes of shared memory); the pool equals its
+    plain version bit for bit, ids in every live bin included."""
+    qn, n, m, k = 512, 100_096, 192, 256
+    g = torch.Generator(device="cuda").manual_seed(1536)
+    lut = torch.rand((qn, m, k), generator=g, device="cuda") * 9
+    codes = torch.randint(0, k, (n, m), generator=g, device="cuda",
+                          dtype=torch.int32).to(torch.uint8)
+    valid = torch.rand(n, generator=g, device="cuda") < 0.98
+    valid[100_000:] = False
+    assert ta._line_queries("adc_pool_cuda", qn, m, k, ta._POOL) == 2
+    lh = ta.lut_bf16(lut)
+    tile, bins, fold, w = ta.pool_geometry(qn, m, k, n)
+    geom = dict(tile=tile, bins=bins, fold=fold, w=w)
+    before = ta.adc_pool_cuda.launches
+    got = ta.adc_pool_cuda(lh, codes, valid, **geom)
+    assert ta.adc_pool_cuda.launches == before + 1
+    want = ta.adc_pool_plain(lh, codes, valid, **geom)
+    torch.cuda.synchronize()
+    live = torch.isfinite(want[0])
+    assert bool(live.any())
+    assert torch.equal(live, torch.isfinite(got[0]))
+    assert torch.equal(got[0][live], want[0][live])
+    assert torch.equal(got[1][live], want[1][live])
+    assert bool((got[1][~live] == -1).all())
+
+
+def test_rerank_cosine_branch_at_1536_features_on_the_card(cuda):
+    """The flat re-rank's cosine branch on the card at 1,536 features
+    (openai500k.batch512's rows: unit rows near unit centres, queries a
+    centre plus noise), against float64: distances within 1e-6 (float32's
+    roundings of the sums and norms; tests/test_torch_flat_text_embedding.py
+    holds the argument), a zero row at distance 1 exactly, a zero query at 1
+    from every row."""
+    from vectorsearch_torch.ops import traversal as traversal_ops
+
+    g = torch.Generator(device="cuda").manual_seed(1537)
+    n, d, qn, c = 100_096, 1536, 512, 256
+    centres = torch.randn((64, d), generator=g, device="cuda")
+    centres /= centres.norm(dim=1, keepdim=True)
+    x = centres[torch.randint(0, 64, (n,), generator=g, device="cuda")]
+    x = x + 0.02 * torch.randn((n, d), generator=g, device="cuda")
+    x /= x.norm(dim=1, keepdim=True)
+    x[3] = 0.0
+    q = centres[torch.randint(0, 64, (qn,), generator=g, device="cuda")]
+    q = q + 0.02 * torch.randn((qn, d), generator=g, device="cuda")
+    q[-1] = 0.0
+    cand = torch.randint(0, n, (2, qn, c), generator=g, device="cuda",
+                         dtype=torch.int32)
+    cand[:, :, 0] = 3
+    alive = torch.ones(n, dtype=torch.bool, device="cuda")
+    sc, di, iv = traversal_ops.exact_rerank_segments(
+        q, [(x, alive), (x, alive)], cand, 20, "COSINE")
+    torch.cuda.synchronize()
+    x64, q64 = x.double(), q.double()
+    rows = x64[iv.long()]  # [2, Q, 20, D]
+    den = q64.norm(dim=1)[None, :, None] * rows.norm(dim=-1)
+    sim = torch.where(den == 0, 0.0, torch.einsum("qd,sqcd->sqc", q64, rows)
+                      / torch.where(den == 0, 1.0, den))
+    assert float((di.double() - (1.0 - sim)).abs().max()) <= 1e-6
+    assert bool((di[:, -1] == 1.0).all())
+    assert bool((di[iv == 3] == 1.0).all())
+
+
 def test_flat_index_on_the_card_matches_the_cpu(cuda, rng):
     x = rng.normal(size=(40_000, 16)).astype(np.float32)
     q = x[:64] + 0.05 * rng.normal(size=(64, 16)).astype(np.float32)

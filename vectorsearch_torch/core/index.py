@@ -56,7 +56,15 @@ host records ``vectorsearch.query.pq_scan_ms``, ``graph_traversal_ms``
 by n segments giving each an n-th of its time; the first sampled dispatch
 of each shape records nothing (it pays first-use costs: lazy kernel
 builds, first launches, uploads). A sampled batch runs the fused route and
-adds no device synchronisation.
+adds no device synchronisation. It also records
+``vectorsearch.flat.rerank_ms`` once: the device time of its flat-route
+re-ranks, summed over its calls (none where a call's shape records
+nothing).
+
+The flat route leaves one ``vectorsearch.flat.call`` record a call in the
+span ring, always (its segment count, a segment's capacity and padded
+width): outside the ``vectorsearch.query.`` prefix, so no reader takes it
+for a stage, and nesting none of the stages.
 
 The async facade (``*_async``) returns ``concurrent.futures.Future``s from
 a lazy 4-worker executor; ``query_async`` coalesces concurrent callers
@@ -112,7 +120,13 @@ from vectorsearch_torch.ops import traversal as traversal_ops
 from vectorsearch_torch.params import Mode, SearchParams, SeedStrategy
 from vectorsearch_torch.results import SearchResult
 from vectorsearch_torch.types import BRUTE_FORCE_STATES, GRAPH_STATES
-from vectorsearch_torch.utils.metrics import device_mark, elapsed_ms, get_registry, stage
+from vectorsearch_torch.utils.metrics import (
+    device_mark,
+    elapsed_ms,
+    get_registry,
+    record_span,
+    stage,
+)
 from vectorsearch_torch.utils.metrics import span as metrics_span
 
 LOG = logging.getLogger("vectorsearch_torch.index")
@@ -163,6 +177,10 @@ WAIT = "vectorsearch.query.wait"
 JOIN = "vectorsearch.query.join"
 #: segments whose row count a batch's plan recomputed by a scan
 PLAN_RECOUNTS = "vectorsearch.query.plan.recounts"
+#: one record a flat-route call (``_flat_segments_query``), recorded always
+FLAT_CALL = "vectorsearch.flat.call"
+#: a sampled batch's device time in the flat route's re-ranks, every call's
+FLAT_RERANK_MS = "vectorsearch.flat.rerank_ms"
 
 
 class _Phases:
@@ -188,6 +206,11 @@ class _Phases:
     def skip(self, phase: str) -> None:
         """A phase this route does not have: 0.0 keeps the instrument live."""
         self._done.append((phase, None, None))
+
+    def ms(self, phase: str) -> float:
+        """``phase``'s time, once the batch's answers are on the host."""
+        return sum(elapsed_ms(a, b) for p, a, b in self._done
+                   if p == phase and a is not None)
 
     def finish(self) -> None:
         """Records each phase's time, an n-th a segment (the events have
@@ -280,7 +303,11 @@ def _flat_segments_query(q, segs, codebooks, slot_base: int, *, ef_dyn,
     efSearch contract (config.flat_ef_semantics); the default keeps the full
     buffer. Returns (scores, dists, rows, slots), each [Q, S*rr'] with one
     block of columns per segment. ``phases`` times the pools as the scan
-    phase and the re-rank (flat mode has no traversal phase)."""
+    phase and the re-rank (flat mode has no traversal phase). Each call
+    leaves one ``FLAT_CALL`` record in the span ring, always, with the
+    call's segment count, a segment's capacity (``rows``) and its padded
+    width (``d``)."""
+    t_call = time.perf_counter_ns()
     with stage(POOL):
         snaps = [seg.flat_snapshot() for seg in segs]
         luts = pq_ops.build_luts(q, torch.stack(codebooks))
@@ -308,6 +335,10 @@ def _flat_segments_query(q, segs, codebooks, slot_base: int, *, ef_dyn,
         )
     if phases is not None:
         phases.mark("rerank_ms")
+    # a record that nests nothing: the stages above keep their depth
+    record_span(FLAT_CALL, t_call, {"segments": len(segs),
+                                    "rows": int(segs[0].cap_pad),
+                                    "d": int(segs[0].d_pad)})
     return out
 
 
@@ -1083,6 +1114,7 @@ class VectorIndex:
         self._qb_count += 1
         new_warm: set = set()
         sampled: list = []  # the batch's _Phases
+        flat_sampled: list = []  # those of its flat-route calls
         shape = tuple(qd.shape)
         sgroups: dict[tuple, list[Segment]] = {}
         for seg in sealed_segs:
@@ -1276,16 +1308,18 @@ class VectorIndex:
                 chunk = group[i : i + per_call]
                 base = len(seg_list)
                 seg_list.extend(chunk)
+                ph = self._phases(
+                    profile, ("flat", shape, cap, ef_buf, rr, len(chunk)),
+                    chunk[0].device, len(chunk), new_warm, sampled)
+                if ph is not None:
+                    flat_sampled.append(ph)
                 entries.append(
                     _flat_segments_query(
                         qg, chunk, [self.caches.get_codebook(s) for s in chunk],
                         base,
                         ef_dyn=[self._auto_tune(s, k, params)[0] for s in chunk],
                         ef_buf=ef_buf, rr=rr, metric=metric,
-                        flat_strict=flat_strict,
-                        phases=self._phases(
-                            profile, ("flat", shape, cap, ef_buf, rr, len(chunk)),
-                            chunk[0].device, len(chunk), new_warm, sampled),
+                        flat_strict=flat_strict, phases=ph,
                     )
                 )
         self._qb_warm |= new_warm  # this batch's first-seen shapes are warm
@@ -1302,6 +1336,11 @@ class VectorIndex:
         with stage(JOIN):
             for ph in sampled:
                 ph.finish()
+            # the batch's flat re-ranks summed over its calls, where every
+            # call's shape has been sampled before
+            if flat_sampled and all(ph.record is not None for ph in flat_sampled):
+                self._metrics.record(FLAT_RERANK_MS,
+                                     sum(ph.ms("rerank_ms") for ph in flat_sampled))
             if entries:
                 top_s, top_d = top_s[:nq], top_d[:nq]  # drop the pad rows
                 vid_of, slot_of = vid_of[:nq], slot_of[:nq]

@@ -29,7 +29,13 @@ events on), taken at import, so that a reader can put the spans on a
 profiler trace. The query's per-batch spans (``per_batch=True``: the query
 and its stages) record only while a torch profiler runs; the others
 (seals, vacuum, the writer's locked sections, the query path's waits on
-them) are few a second and record always.
+them) are few a second and record always, as do the port's own route
+records outside the ``vectorsearch.query.`` prefix: one
+``vectorsearch.exact_pool.wide_pass`` a launch of B2's wide form, one
+``vectorsearch.flat.call`` a flat-route call (``record_span``: around the
+batch's stages, nesting none of them, with no batch id), and, on sampled
+batches, the histogram ``vectorsearch.flat.rerank_ms`` (the batch's flat
+re-ranks' device time).
 """
 
 from __future__ import annotations
@@ -212,6 +218,16 @@ def stage(name: str):
     if not _autograd_profiler._is_profiler_enabled:
         return _NULL_SPAN
     return _Span(name, None, True, otel=False)
+
+
+def record_span(name: str, start_ns: int, attrs: dict | None = None) -> None:
+    """Appends a closed record from ``start_ns`` (``time.perf_counter_ns``)
+    to now to the span ring, always, without opening it on the thread: the
+    spans opened meanwhile keep their depth and batch, and the record takes
+    none (a route's record around a query batch's stages). No OpenTelemetry
+    mirror."""
+    GLOBAL.add_span(name, None, len(_open_spans()), start_ns,
+                    time.perf_counter_ns(), attrs)
 
 
 @contextlib.contextmanager
